@@ -1,0 +1,35 @@
+"""Architecture registry of the port: ``get_config('<arch-id>')`` returns the
+exact published config, ``get_smoke('<arch-id>')`` the reduced same-family
+smoke config. Only the architectures the port serves so far are listed."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (ArchConfig, GriffinConfig,
+                                      Mamba2Config, MoEConfig,
+                                      ParallelConfig, QuantPolicy, VLMConfig)
+from repro_torch.core.swis import QuantConfig
+
+_MODULES = {
+    "smollm-135m": "smollm_135m",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+__all__ = ["ARCH_IDS", "ArchConfig", "GriffinConfig", "Mamba2Config",
+           "MoEConfig", "ParallelConfig", "QuantConfig", "QuantPolicy",
+           "VLMConfig", "get_config", "get_smoke"]
+
+
+def _module(arch_id: str):
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_smoke(arch_id: str) -> ArchConfig:
+    return _module(arch_id).SMOKE

@@ -1,0 +1,94 @@
+"""SWIS dequant-in-kernel matmul: the wrapper around ``csrc/swis_matmul.cu``.
+
+Port of ``repro.kernels.swis_matmul.swis_matmul_packed``. On CUDA tensors
+it launches the hand-written kernel (or raises); on CPU tensors it takes
+the plain version, :func:`repro_torch.kernels.ref.swis_matmul_ref`. The
+TPU kernel's tile-divisibility check is a TPU tiling artefact and is gone:
+the CUDA kernel masks its ragged edges.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.build import Kernel, stream_ptr
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+KERNEL = Kernel("swis_matmul", {
+    "swis_matmul_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _P],
+})
+_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(x, sign_plane, mask_planes, shifts, scale, n_shifts, group,
+           consecutive, keep_slices):
+    if keep_slices is not None and not 1 <= keep_slices <= n_shifts:
+        raise ValueError(
+            f"keep_slices must be in [1, {n_shifts}], got {keep_slices}")
+    if x.ndim != 2:
+        raise ValueError(f"x must be 2-D (M, K), got shape {tuple(x.shape)}")
+    m, k = x.shape
+    kw, n = sign_plane.shape
+    if k % 32 or kw * 32 != k:
+        raise ValueError(f"K={k} must be a multiple of 32 and match the "
+                         f"sign plane's {kw} words")
+    if group < 1 or k % group:
+        raise ValueError(f"K={k} must be a multiple of the group {group}")
+    want = {
+        "mask_planes": (mask_planes, (n_shifts, kw, n)),
+        "shifts": (shifts, (k // group, n,
+                            1 if consecutive else (n_shifts + 1) // 2)),
+    }
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    if scale.numel() != n:
+        raise ValueError(f"scale has {scale.numel()} entries, expected {n}")
+
+
+def swis_matmul_packed(x: torch.Tensor, sign_plane: torch.Tensor,
+                       mask_planes: torch.Tensor, shifts: torch.Tensor,
+                       scale: torch.Tensor, *, n_shifts: int, group: int,
+                       consecutive: bool = False,
+                       keep_slices: Optional[int] = None) -> torch.Tensor:
+    """``x (M, K) @ dequant(packed (K, N)) -> (M, N) float32``.
+
+    ``keep_slices=k`` evaluates only the k most significant bit-planes.
+    """
+    _check(x, sign_plane, mask_planes, shifts, scale, n_shifts, group,
+           consecutive, keep_slices)
+    if x.device.type == "cpu":
+        return ref.swis_matmul_ref(
+            x, sign_plane, mask_planes, shifts, scale, group=group,
+            consecutive=consecutive, keep_slices=keep_slices)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    operands = {"x": x, "sign_plane": sign_plane, "mask_planes": mask_planes,
+                "shifts": shifts, "scale": scale}
+    dtypes = {"sign_plane": torch.int32, "mask_planes": torch.int32,
+              "shifts": torch.uint8, "scale": torch.float32}
+    for name, t in operands.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name in dtypes and t.dtype != dtypes[name]:
+            raise ValueError(f"{name} must be {dtypes[name]}, got {t.dtype}")
+    if x.dtype not in _X_DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    m, k = x.shape
+    n = sign_plane.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    first = 0 if keep_slices is None else n_shifts - keep_slices
+    KERNEL.call(
+        "swis_matmul_launch", _X_DTYPES[x.dtype], x.data_ptr(),
+        sign_plane.data_ptr(), mask_planes.data_ptr(), shifts.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), m, k, n, group, n_shifts, first,
+        int(consecutive), shifts.shape[-1], stream_ptr(x.device))
+    return out

@@ -1,0 +1,130 @@
+"""Top-level model for the dense family (PyTorch port of
+``repro.models.model``): embedding -> layer stack -> norm -> unembed, with
+the serving entry points ``prefill_bucketed``, ``prefill_chunk`` and
+``decode_step``.
+
+The reference scans its stacked layer axis; here the layers are a Python
+loop over that axis, each layer reading its slice (a view) of the stacked
+parameter and cache tensors, so cache writes land in the stacked tensors in
+place.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import params as pp
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import (build_embed, build_norm, embed_apply,
+                                       norm_apply, unembed_apply)
+
+
+def _layer(tree, i: int):
+    return pp.tree_map(lambda a: a[i], tree)
+
+
+class Model:
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+        self.unit = tfm.pattern_for(cfg)
+        u = len(self.unit)
+        self.n_units = cfg.n_layers // u
+        if cfg.n_layers % u:
+            raise NotImplementedError("tail layers are not ported yet")
+
+    # -- parameter / cache trees (placeholders) ---------------------------
+
+    def build(self) -> dict:
+        cfg = self.cfg
+        unit_tree = {f"sub{i}_{kind}": tfm.build_block(cfg, kind)
+                     for i, kind in enumerate(self.unit)}
+        return {"embed": build_embed(cfg),
+                "blocks": pp.stack(unit_tree, self.n_units),
+                "final_norm": build_norm(cfg.d_model)}
+
+    def build_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                    per_slot: bool = False) -> dict:
+        """``per_slot=True`` builds the continuous-batching layout: the
+        position plane is (batch, cache_len) so every row decodes at its
+        own depth."""
+        unit_cache = {
+            f"sub{i}_{kind}": tfm.build_block_cache(self.cfg, kind, batch,
+                                                    max_len, dtype, per_slot)
+            for i, kind in enumerate(self.unit)}
+        return {"blocks": pp.stack(unit_cache, self.n_units)}
+
+    # -- forward ------------------------------------------------------------
+
+    def apply(self, params, batch: Dict[str, torch.Tensor], *, cache=None,
+              cache_index=None, last_index=None,
+              block_tables=None, attend_cache: bool = False,
+              paged: bool = False):
+        """Forward pass over tokens (B, S). Returns (logits (B, S, V) — or
+        (B, 1, V) with ``last_index`` (scalar or (B,)) — cache, aux).
+
+        ``cache_index``: None (no cache), an int (write offset shared by
+        the batch) or a (B,) tensor (per-slot decode positions).
+        """
+        cfg = self.cfg
+        x = embed_apply(params["embed"], batch["tokens"], cfg)
+        s = x.shape[1]
+        ar = torch.arange(s, dtype=torch.int32, device=x.device)
+        if cache_index is None:
+            positions = ar
+        elif torch.is_tensor(cache_index) and cache_index.ndim == 1:
+            positions = cache_index.to(torch.int32)[:, None] + ar[None, :]
+        else:
+            positions = int(cache_index) + ar
+        for i in range(self.n_units):
+            unit_params = _layer(params["blocks"], i)
+            unit_cache = (_layer(cache["blocks"], i) if cache is not None
+                          else None)
+            for j, kind in enumerate(self.unit):
+                key = f"sub{j}_{kind}"
+                x, _ = tfm.block_apply(
+                    unit_params[key], x, cfg, kind, positions=positions,
+                    cache=unit_cache[key] if unit_cache is not None else None,
+                    cache_index=cache_index, block_tables=block_tables,
+                    attend_cache=attend_cache, paged=paged)
+        if last_index is not None:
+            b = x.shape[0]
+            idx = torch.as_tensor(last_index, device=x.device).long()
+            x = x[torch.arange(b, device=x.device), idx.expand(b)][:, None]
+        x = norm_apply(params["final_norm"], x, cfg)
+        logits = unembed_apply(params["embed"], x, cfg)
+        return logits, cache, torch.zeros((), dtype=torch.float32,
+                                          device=x.device)
+
+    # -- serving ------------------------------------------------------------
+
+    def prefill_bucketed(self, params, batch, cache, last_index):
+        """Whole-prompt prefill over bucket-padded tokens, writing the
+        cache's rows [0, S). Returns each row's last *real* token's logits
+        (``last_index``, scalar or (B,)). The caller invalidates the pad
+        positions the cache recorded before it is decoded from."""
+        logits, cache, _ = self.apply(params, batch, cache=cache,
+                                      cache_index=0, last_index=last_index)
+        return logits[:, -1], cache
+
+    def prefill_chunk(self, params, batch, cache, committed, last_index):
+        """Prefill past ``committed`` rows that already hold valid K/V (a
+        cached prefix): write the chunk at [committed, committed + S) and
+        attend over the whole updated cache. Returns the logits of each
+        row's last real token (``last_index``, chunk-relative)."""
+        logits, cache, _ = self.apply(params, batch, cache=cache,
+                                      cache_index=int(committed),
+                                      last_index=last_index,
+                                      attend_cache=True)
+        return logits[:, -1], cache
+
+    def decode_step(self, params, token, cache, index, block_tables=None, *,
+                    paged: bool = False):
+        """One decode step. token: (B, 1); index: (B,) per-slot positions;
+        ``block_tables`` (B, n_blocks) int32 indexes the physical-block
+        arena; ``paged`` runs the paged attention kernel over it."""
+        logits, cache, _ = self.apply(params, {"tokens": token}, cache=cache,
+                                      cache_index=index,
+                                      block_tables=block_tables, paged=paged)
+        return logits[:, -1], cache

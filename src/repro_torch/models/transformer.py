@@ -1,0 +1,60 @@
+"""Block assembly for the dense family (PyTorch port of
+``repro.models.transformer``, ``attn`` kind): pre-norm self-attention +
+MLP. The other block kinds (MoE, RG-LRU, Mamba, encoder, cross-attention)
+are not ported yet."""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import build_mlp, build_norm, mlp_apply, norm_apply
+from repro_torch.models.params import P
+
+
+def pattern_for(cfg: ArchConfig) -> Tuple[str, ...]:
+    if cfg.family == "dense":
+        return ("attn",)
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+
+
+def build_block(cfg: ArchConfig, kind: str) -> dict:
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    d = cfg.d_model
+    return {"ln1": build_norm(d), "attn": attn_mod.build_attention(cfg),
+            "ln2": build_norm(d), "mlp": build_mlp(cfg)}
+
+
+def build_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                      dtype, per_slot: bool = False) -> dict:
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    c = attn_mod.build_cache(cfg, batch, max_len, dtype)
+    cache_len = c["k"].shape[1]
+    # position slots start invalid (-1) so unwritten entries are masked
+    if per_slot:
+        c["pos"] = P((batch, cache_len), ("batch", "kv_seq"), init="fill",
+                     scale=-1, dtype=torch.int32)
+    else:
+        c["pos"] = P((cache_len,), ("kv_seq",), init="fill", scale=-1,
+                     dtype=torch.int32)
+    return c
+
+
+def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
+                positions: torch.Tensor, cache: Optional[dict] = None,
+                cache_index=None, block_tables: Optional[torch.Tensor] = None,
+                attend_cache: bool = False, paged: bool = False):
+    """Returns (x, cache)."""
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    h, cache = attn_mod.attention_apply(
+        p["attn"], norm_apply(p["ln1"], x, cfg), cfg, positions=positions,
+        causal=cfg.causal, window=None, cache=cache, cache_index=cache_index,
+        block_tables=block_tables, attend_cache=attend_cache, paged=paged)
+    x = x + h
+    x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg)
+    return x, cache

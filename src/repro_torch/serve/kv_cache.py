@@ -1,0 +1,154 @@
+"""Slot KV cache in block mode (PyTorch port of ``repro.serve.kv_cache``).
+
+The KV arena is ``n_blocks`` physical blocks of ``block_size`` token
+positions: every cache leaf's batch axis is the physical block axis
+(``k``: (layers, n_blocks, block_size, hkv, dh), ``pos``: (layers,
+n_blocks, block_size)). Each slot owns a row of ``block_tables`` mapping
+its logical block ``i`` (positions ``[i*bs, (i+1)*bs)``) to a physical
+block, so decode reads its K/V through the table and slots whose tables
+share a physical block share that KV with no copy (prefix caching). Block 0
+is the trash block: free slots' rows point at it, and a table entry of 0
+means "invalid" to the attention mask.
+
+The reference's contiguous (non-block) mode, used by recurrent and
+window-truncated families, is not ported yet.
+
+The arena is updated in place (decode and ``scatter_row`` write into it)
+where the reference's jitted updates donated it.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.models import params as pp
+
+
+def _is_attn_cache(d) -> bool:
+    return isinstance(d, dict) and set(d) == {"k", "v", "pos"}
+
+
+class SlotKVCache:
+    """Batched per-slot cache with block-table indirection."""
+
+    def __init__(self, model, n_slots: int, max_len: int,
+                 dtype: Any = torch.float32, block_size: Optional[int] = 8,
+                 n_blocks: Optional[int] = None, device="cuda"):
+        if block_size is None:
+            raise NotImplementedError(
+                "contiguous (non-block) cache mode is not ported yet")
+        self.model = model
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.dtype = dtype
+        self.block_size = block_size
+        self.device = torch.device(device)
+        self.blocks_per_slot = -(-max_len // block_size)
+        self.eff_len = self.blocks_per_slot * block_size
+        # +1 for the reserved trash block; the default leaves room for two
+        # slots' worth of cached-but-unreferenced prefix blocks
+        self.n_blocks = n_blocks or (
+            n_slots * self.blocks_per_slot + 2 * self.blocks_per_slot + 1)
+        self.tree = self.fresh(self.n_blocks, block_size)
+        self.block_tables = np.zeros((n_slots, self.blocks_per_slot), np.int32)
+        self._tables_dev = None  # refreshed lazily after table mutations
+
+    @staticmethod
+    def supports_blocks(model, max_len: int) -> bool:
+        """Block mode applies iff every cache leaf is a standard attention
+        cache spanning the full ``max_len``."""
+        spec = model.build_cache(1, max_len, per_slot=True)
+        for key, sub in spec.items():
+            if key != "blocks":
+                return False
+            for blk in sub.values():
+                if not _is_attn_cache(blk) or blk["k"].shape[-3] != max_len:
+                    return False
+        return True
+
+    def fresh(self, batch: int, length: Optional[int] = None):
+        """A new zero-initialized ``batch``-row cache tree of ``length``
+        positions (pos planes all -1). Always a new allocation: prefill
+        writes into its working tree in place."""
+        length = length or self.eff_len
+        tree = self.model.build_cache(batch, length, self.dtype, per_slot=True)
+        return pp.init_params(tree, None, device=self.device)
+
+    # -- block tables -----------------------------------------------------
+
+    def tables_device(self) -> torch.Tensor:
+        if self._tables_dev is None:
+            self._tables_dev = torch.from_numpy(self.block_tables.copy()).to(
+                self.device)
+        return self._tables_dev
+
+    def set_table(self, slot: int, blocks: Sequence[int]) -> None:
+        """Point ``slot``'s logical blocks at physical ``blocks``; the rest
+        of the row falls back to the trash block 0."""
+        row = np.zeros(self.blocks_per_slot, np.int32)
+        row[:len(blocks)] = blocks
+        if np.any(row[:len(blocks)] == 0):
+            raise ValueError(
+                f"live table entry maps to reserved trash block 0: {blocks}")
+        self.block_tables[slot] = row
+        self._tables_dev = None
+
+    def clear_table(self, slot: int) -> None:
+        self.block_tables[slot] = 0
+        self._tables_dev = None
+
+    # -- prefill working trees ---------------------------------------------
+
+    def prefix_tree(self, block_ids: Sequence[Sequence[int]],
+                    prefix_len: int, length: Optional[int] = None):
+        """A ``g``-row cache of ``length`` positions (default ``eff_len``)
+        whose rows [0, prefix_len) are gathered from the arena blocks
+        ``block_ids`` ((g, prefix_len // bs) physical ids) — the working
+        tree for prefilling past a cached prefix."""
+        g = len(block_ids)
+        base = self.fresh(g, length)
+        if prefix_len == 0:
+            return base
+        ids = np.asarray(block_ids, np.int32)
+        if ids.size * self.block_size != g * prefix_len:
+            raise ValueError(f"{ids.shape} blocks for a {prefix_len}-token prefix")
+        if np.any(ids == 0):
+            raise ValueError(
+                f"cached prefix references reserved trash block 0: {block_ids}")
+        idx = torch.from_numpy(ids.reshape(-1).astype(np.int64)).to(self.device)
+
+        def graft(dst, src):  # (L, n_blocks, bs, ...) -> (L, g, plen, ...)
+            pref = src[:, idx].reshape((src.shape[0], g, prefix_len)
+                                       + src.shape[3:])
+            dst[:, :, :prefix_len] = pref
+            return dst
+
+        return {"blocks": {name: {leaf: graft(base["blocks"][name][leaf], src)
+                                  for leaf, src in sub.items()}
+                           for name, sub in self.tree["blocks"].items()}}
+
+    def scatter_row(self, slot_tree, row: int, block_ids: Sequence[int],
+                    first_block: int, n_valid: int) -> None:
+        """Commit one prefilled row into its owned arena blocks: logical
+        blocks [first_block, first_block + len(block_ids)) of ``slot_tree``
+        row ``row`` overwrite physical ``block_ids``. Pos entries beyond
+        ``n_valid`` tokens past the region start (bucket padding, the
+        unwritten tail) are invalidated."""
+        if not len(block_ids):
+            return
+        ids = np.asarray(block_ids, np.int64)
+        if np.any(ids == 0):
+            raise ValueError(f"commit targets reserved trash block 0: {block_ids}")
+        nb, bs = len(ids), self.block_size
+        lo = first_block * bs
+        idx = torch.from_numpy(ids).to(self.device)
+        keep = torch.arange(nb * bs, device=self.device) < n_valid
+        for name, sub in self.tree["blocks"].items():
+            for leaf, arena in sub.items():
+                reg = slot_tree["blocks"][name][leaf][:, row, lo:lo + nb * bs]
+                if leaf == "pos":
+                    reg = torch.where(keep[None], reg, -1)
+                arena[:, idx] = reg.reshape((reg.shape[0], nb, bs)
+                                            + reg.shape[2:])

@@ -1,0 +1,131 @@
+"""SWIS-packed parameters for serving (PyTorch port of ``repro.serve.quantized``).
+
+``pack_tree`` walks a parameter tree and replaces every eligible GEMM weight
+(``{'w': (..., K, C)}`` leaves, leading axes being stacked layers) with its
+packed SWIS representation {sign_plane, mask_planes, shifts, scale}. The
+model's ``dense`` path detects packed leaves and runs the SWIS matmul
+kernel on them, so the weight bytes a GEMM reads are the packed bytes.
+Already-packed leaves pass through unchanged, so packing a packed tree is a
+no-op.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core import packing
+from repro_torch.core.swis import QuantConfig, quantize
+
+PACKED_KEYS = ("sign_plane", "mask_planes", "shifts", "scale")
+
+
+def is_packed(leaf) -> bool:
+    return isinstance(leaf, dict) and "mask_planes" in leaf
+
+
+def _eligible(path_keys, arr) -> bool:
+    # any rank >= 2: trailing (K, C) is the GEMM matrix, leading dims are
+    # stacked layers and/or experts
+    if len(arr.shape) < 2:
+        return False
+    k = arr.shape[-2]
+    if k % 32 or k < 64:
+        return False
+    name = str(path_keys[-1])
+    if name not in ("w", "wi", "wo", "wg", "shared_wi", "shared_wo",
+                    "shared_wg"):
+        return False
+    joined = "/".join(str(p) for p in path_keys)
+    if "embed" in joined or "router" in joined or "frontend" in joined:
+        return False
+    return True
+
+
+def _pack_matrix(w: torch.Tensor, qcfg: QuantConfig) -> Dict[str, torch.Tensor]:
+    pw = packing.pack(quantize(w.float(), qcfg))
+    scale = pw.scale.float()
+    return {
+        "sign_plane": pw.sign_plane,
+        "mask_planes": pw.mask_planes,
+        "shifts": pw.shifts,
+        "scale": (scale.reshape(1, -1) if scale.ndim
+                  else torch.full((1, w.shape[-1]), float(scale),
+                                  dtype=torch.float32, device=w.device)),
+    }
+
+
+def pack_tree(params, qcfg: QuantConfig):
+    """Returns (packed_tree, stats). Non-eligible leaves pass through."""
+    n_packed = 0
+    dense_bits = 0
+    packed_bits = 0
+
+    def walk(path, node):
+        nonlocal n_packed, dense_bits, packed_bits
+        if isinstance(node, dict):
+            return {k: walk(path + (k,), v) for k, v in node.items()}
+        arr = node
+        if not _eligible(path, arr):
+            return arr
+        if arr.ndim > 2:
+            lead = arr.shape[:-2]
+            flat = arr.reshape(-1, *arr.shape[-2:])
+            packed = [_pack_matrix(flat[i], qcfg) for i in range(flat.shape[0])]
+            out = {k: torch.stack([p[k] for p in packed]).reshape(
+                lead + packed[0][k].shape) for k in PACKED_KEYS}
+        else:
+            out = _pack_matrix(arr, qcfg)
+        n_packed += 1
+        k, c = arr.shape[-2], arr.shape[-1]
+        e = int(np.prod(arr.shape[:-2])) if arr.ndim > 2 else 1
+        dense_bits += e * k * c * 8
+        n = int(out["mask_planes"].shape[-3])
+        groups = k // qcfg.group_size * c
+        shift_bits = 3 if qcfg.method == "swis_c" else 3 * n
+        packed_bits += e * (k * c * (1 + n) + groups * shift_bits)
+        return out
+
+    tree = walk((), params)
+    stats = {
+        "n_packed": n_packed,
+        "dense_bits": dense_bits,
+        "packed_bits": packed_bits,
+        "compression": dense_bits / max(packed_bits, 1),
+    }
+    return tree, stats
+
+
+def total_slices(tree) -> int:
+    """Number of SWIS bit-slices (mask planes) in a packed tree, from the
+    first packed leaf; 0 when the tree holds no packed leaves."""
+    if is_packed(tree):
+        return int(tree["mask_planes"].shape[-3])
+    if isinstance(tree, dict):
+        for v in tree.values():
+            found = total_slices(v)
+            if found:
+                return found
+    return 0
+
+
+def dequant_leaf(leaf: Dict[str, torch.Tensor], dtype=torch.float32,
+                 consecutive: bool = False) -> torch.Tensor:
+    """Dense weights from a packed leaf (2-D or stacked 3-D)."""
+    from repro_torch.kernels.ref import dequant_ref
+
+    mask = leaf["mask_planes"]
+    if mask.ndim == 4:  # (E, N, K/32, C)
+        k = leaf["sign_plane"].shape[-2] * 32
+        group = k // leaf["shifts"].shape[-3]
+        return torch.stack([
+            dequant_ref(s, m, sh, sc, group=group, dtype=dtype,
+                        consecutive=consecutive)
+            for s, m, sh, sc in zip(leaf["sign_plane"], mask, leaf["shifts"],
+                                    leaf["scale"])])
+    k = leaf["sign_plane"].shape[0] * 32
+    group = k // leaf["shifts"].shape[0]
+    return dequant_ref(leaf["sign_plane"], mask, leaf["shifts"],
+                       leaf["scale"], group=group, dtype=dtype,
+                       consecutive=consecutive)

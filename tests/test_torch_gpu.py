@@ -1,0 +1,109 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions on the same inputs, and the serve engine on the card against the
+port's CPU path. Every test here is marked ``gpu`` and skips without a
+CUDA device; this file imports no JAX, so on the card it runs as
+``python -m pytest -q -m gpu tests/test_torch_*.py``."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.core import packing, swis
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import swis_matmul as sm
+from repro_torch.models import params as pp
+from repro_torch.models.model import Model
+from repro_torch.serve import (ContinuousBatchingEngine, EngineConfig,
+                               SamplingParams)
+from torch_port import cuda_device  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.gpu
+
+
+def _close(got, want, tol):
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert torch.allclose(got, want, rtol=tol, atol=tol * scale), (err, scale)
+
+
+@pytest.mark.parametrize("method", ["swis", "swis_c"])
+def test_swis_kernel_matches_plain(cuda_device, method):  # noqa: F811
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for m, k, n, group, n_shifts in [(4, 576, 576, 4, 4), (37, 1536, 576, 4, 4),
+                                     (64, 576, 1536, 4, 4), (8, 96, 128, 16, 3),
+                                     (3, 64, 200, 8, 2)]:
+        w = torch.randn((k, n), generator=g, device=cuda_device) * 0.05
+        pw = packing.pack(swis.quantize(w, swis.QuantConfig(
+            method=method, n_shifts=n_shifts, group_size=group)))
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            x = torch.randn((m, k), generator=g, device=cuda_device).to(dtype)
+            for keep in (None, 1, n_shifts):
+                before = sm.KERNEL.launches
+                got = ops.swis_matmul(x, pw, keep_slices=keep)
+                assert sm.KERNEL.launches == before + 1
+                want = ref.swis_matmul_ref(
+                    x, pw.sign_plane, pw.mask_planes, pw.shifts,
+                    pw.scale.reshape(-1).expand(n), group=group,
+                    consecutive=method == "swis_c", keep_slices=keep)
+                _close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_paged_kernel_matches_plain(cuda_device, dtype):  # noqa: F811
+    rng = np.random.default_rng(3)
+    b, hkv, g, dh, bs, nb, n_blocks = 3, 3, 3, 64, 8, 5, 16
+    for sq, q_lens, window in ((1, None, None), (4, [4, 0, 2], None),
+                               (2, [1, 2, 0], 6)):
+        q = torch.from_numpy(rng.normal(0, 1, (b, sq, hkv * g, dh)).astype(
+            np.float32)).to(cuda_device)
+        kv = torch.from_numpy(rng.normal(0, 1, (2, n_blocks, bs, hkv, dh)).astype(
+            np.float32)).to(cuda_device, dtype)
+        pos = np.full((n_blocks, bs), -1, np.int32)
+        pos[0] = 2  # garbage in the trash block
+        tables = np.zeros((b, nb), np.int32)
+        tables[0, :3], tables[1, :1] = [4, 9, 2], [7]  # row 2: all trash
+        pos[4], pos[9], pos[2, :5] = np.arange(8), np.arange(8, 16), np.arange(16, 21)
+        pos[7, :3] = np.arange(3)
+        args = [torch.from_numpy(a).to(cuda_device) for a in
+                (pos, tables, np.array([21 - sq, 3 - sq if sq < 3 else 0, 4],
+                                       np.int32))]
+        ql = (None if q_lens is None
+              else torch.tensor(q_lens, dtype=torch.int32, device=cuda_device))
+        before = pa.KERNEL.launches
+        got = pa.paged_attention_decode(q, kv[0], kv[1], *args, q_lens=ql,
+                                        window=window)
+        assert pa.KERNEL.launches == before + 1
+        want = pa.paged_attention_decode(
+            q.cpu(), kv[0].cpu(), kv[1].cpu(), *(a.cpu() for a in args),
+            q_lens=None if ql is None else ql.cpu(), window=window)
+        assert torch.isfinite(got).all()
+        _close(got.cpu(), want, 1e-5)
+
+
+def test_engine_on_card_matches_cpu_path(cuda_device):  # noqa: F811
+    cfg = configs.get_smoke("smollm-135m").replace(
+        compute_dtype="float32", d_model=64, n_heads=4, n_kv_heads=2, d_ff=128)
+    params = pp.init_params(Model(cfg).build(), torch.Generator().manual_seed(1),
+                            device="cpu")
+    ecfg = EngineConfig(max_len=48, n_slots=2, packed=True,
+                        use_paged_kernel=True)
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, cfg.vocab, 16)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, n)])
+               for n in (5, 9, 3)] + [rng.integers(0, cfg.vocab, 12)]
+    outs, engines = [], []
+    for dev in (cuda_device, "cpu"):
+        eng = ContinuousBatchingEngine(cfg, params, ecfg, device=dev)
+        sm.KERNEL.launches = pa.KERNEL.launches = 0
+        rids = [eng.submit(p, SamplingParams(max_tokens=6)) for p in prompts]
+        out = eng.drain()
+        outs.append([out[r] for r in rids])
+        engines.append(eng)
+        if dev != "cpu":
+            calls = eng.n_prefill_calls + eng.n_decode_steps
+            assert sm.KERNEL.launches == 7 * cfg.n_layers * calls
+            assert pa.KERNEL.launches == cfg.n_layers * eng.n_decode_steps
+            assert eng.prefix_stats()["hits"] >= 1
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)

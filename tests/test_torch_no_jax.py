@@ -1,0 +1,45 @@
+"""The port stands alone: ``repro_torch`` (every module) and
+``chip_smoke.py`` import neither JAX nor the JAX reference package."""
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+sys.path[:0] = [{src!r}, {root!r}]
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({{"modules": names, "bad": bad}}))
+"""
+
+
+def test_importing_the_port_loads_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(src=str(ROOT / "src"),
+                                             root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(got["modules"]) >= 20, got["modules"]
+    assert got["bad"] == [], f"port imported {got['bad']}"
+
+
+def test_sources_name_no_jax_or_reference_import():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                         re.MULTILINE)
+    assert len(PORT_SOURCES) >= 20
+    for path in PORT_SOURCES:
+        hits = pattern.findall(path.read_text())
+        assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
