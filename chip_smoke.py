@@ -11,9 +11,12 @@ Phases, each fatal on failure (exit code 1, and no result line):
 2. build: ``nvcc`` for every kernel source, all started together; build
    seconds and the ``-Xptxas -v`` register and shared-memory lines.
 3. kernels against their plain PyTorch versions on the card, at the
-   slice's shapes and the reference's test sweep; then each kernel's time
-   at the decode shapes beside its bound, the plain version's time and a
-   library call's time (a yardstick only: the port never calls it).
+   slice's shapes and the reference's test sweep, and each run twice on
+   the same inputs for bit-identical outputs; then each kernel's time at
+   the decode shapes beside its bound, the plain version's time and a
+   library call's time (a yardstick only: the port never calls it), and
+   on lines of their own the SWIS kernel at the prefill row count (M =
+   256) and paged attention over 128 logical blocks.
 4. the slice at full width: SWIS-packed smollm-135m (random weights from a
    seed) serves 8 requests through ``ContinuousBatchingEngine``, with the
    kernels' launch counts checked against the model calls made, a prefix
@@ -116,7 +119,6 @@ def packed_weight(k, n, group, n_shifts, method, seed, dev):
 
 def swis_phase(dev):
     import torch
-    from repro_torch.core.packing import PackedWeight
     from repro_torch.kernels import ops, ref
 
     cases = []  # (M, K, N, group, n_shifts, dtype, method, keeps)
@@ -161,33 +163,60 @@ def swis_phase(dev):
           f"on the card; max|err| fp32 {errs['float32']:.3g} (rtol 1e-5, "
           f"atol 1e-5*max|ref|), bf16 {errs['bfloat16']:.3g} (2e-2)")
 
-    # decode-shape timing: one layer's 7 GEMMs at M = 4
+    # the same inputs twice through the kernel give the same bits
+    for m, (k, n) in ((4, LAYER_GEMMS[6]), (256, LAYER_GEMMS[4])):
+        pw = packed[(k, n, GROUP, N_SHIFTS, "swis")]
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn((m, k), device=dev).to(dt)
+            check(torch.equal(ops.swis_matmul(x, pw), ops.swis_matmul(x, pw)),
+                  f"swis_matmul M={m} K={k} N={n} {dt}: repeat run differs")
+    print("swis_matmul: repeat runs bit-identical (M 4 and 256, fp32 and bf16)")
+
+    perf = swis_layer_timing(dev, 4)
+    perf["max_abs_err"] = errs["float32"]
+    perf["timed"] = ("one smollm-135m decode layer: 7 GEMMs at M=4 "
+                     "(sum of per-GEMM means), fp32 x, 4 planes, group 4")
+    return perf
+
+
+def swis_layer_timing(dev, m):
+    """One smollm-135m layer's 7 GEMMs at ``m`` rows of fp32 x: the kernel,
+    the plain version and ``torch.matmul`` on the dense fp32 weight (sums
+    of per-GEMM means), and the bound."""
+    import torch
+    from repro_torch.core.packing import PackedWeight
+    from repro_torch.kernels import ops, ref
+
     ms = plain_ms = lib_ms = bound_ms = 0.0
     by = set()
+    per_gemm = []  # "KxN kernel/torch.matmul" in us
     for i, (k, n) in enumerate(LAYER_GEMMS):
         pw = packed_weight(k, n, GROUP, N_SHIFTS, "swis", 50 + i, dev)
         scale = pw.scale.reshape(-1).expand(n).contiguous()
         pwn = PackedWeight(pw.sign_plane, pw.mask_planes, pw.shifts, scale,
                            GROUP, N_SHIFTS, k, n)
-        x = torch.randn((4, k), device=dev)
+        x = torch.randn((m, k), device=dev)
         w = ref.dequant_ref(pw.sign_plane, pw.mask_planes, pw.shifts, scale,
                             group=GROUP)
-        ms += cuda_ms(lambda: ops.swis_matmul(x, pwn))
+        t = cuda_ms(lambda: ops.swis_matmul(x, pwn))
         plain_ms += cuda_ms(lambda: ref.swis_matmul_ref(
             x, pw.sign_plane, pw.mask_planes, pw.shifts, scale, group=GROUP),
             iters=20)
-        lib_ms += cuda_ms(lambda: torch.matmul(x, w))
+        t_lib = cuda_ms(lambda: torch.matmul(x, w))
+        ms += t
+        lib_ms += t_lib
+        per_gemm.append(f"{k}x{n} {t * 1e3:.2f}/{t_lib * 1e3:.2f}")
         nbytes = (x.numel() * 4 + pw.sign_plane.numel() * 4
                   + pw.mask_planes.numel() * 4 + pw.shifts.numel()
-                  + scale.numel() * 4 + 4 * n * 4)
-        b, which = bound(nbytes, 2 * 4 * k * n)
+                  + scale.numel() * 4 + m * n * 4)
+        b, which = bound(nbytes, 2 * m * k * n)
         bound_ms += b
         by.add(which)
-    return {"max_abs_err": errs["float32"], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if by == {"bytes"} else "operations",
-            "timed": "one smollm-135m decode layer: 7 GEMMs at M=4 "
-                     "(sum of per-GEMM means), fp32 x, 4 planes, group 4"}
+    print(f"  swis_matmul per GEMM at M={m}, KxN kernel/torch.matmul us: "
+          + ", ".join(per_gemm))
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if by == {"bytes"} else "operations"}
 
 
 # -- phase 3: paged attention ------------------------------------------------
@@ -248,7 +277,6 @@ def plain_paged(q, k, v, pos, tables, q_pos, q_lens, window):
 
 def paged_phase(dev):
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_attention_decode
 
     cases = [  # (label, arena kwargs, q_lens, window)
@@ -267,6 +295,10 @@ def paged_phase(dev):
                 q_lens, dtype=torch.int32, device=dev)
             got = paged_attention_decode(q, k.to(dt), v.to(dt), pos, tables,
                                          q_pos, q_lens=ql, window=window)
+            again = paged_attention_decode(q, k.to(dt), v.to(dt), pos, tables,
+                                           q_pos, q_lens=ql, window=window)
+            check(torch.equal(got, again),
+                  f"paged_attention {label} {dt}: repeat run differs")
             want = plain_paged(q, k.to(dt), v.to(dt), pos, tables, q_pos, ql,
                                window)
             torch.cuda.synchronize()
@@ -277,13 +309,27 @@ def paged_phase(dev):
                   f"paged_attention {label} {dt}: max|err|={err:.3g} (1e-5)")
     print(f"paged_attention: {len(cases)} cases x 3 cache dtypes against the "
           f"plain version, all rows compared; max|err| {err_max:.3g} "
-          f"(rtol = atol = 1e-5)")
+          f"(rtol = atol = 1e-5); repeat runs bit-identical")
 
-    # decode-shape timing: B=4, Hkv=3, G=3, Dh=64, bs=8, 16 logical blocks
+    perf = paged_timing(dev, nb=16, n_blocks=97, live=(12, 12, 11, 12))
+    perf["max_abs_err"] = err_max
+    perf["timed"] = ("one decode launch: B=4, H=9 over Hkv=3, Dh=64, "
+                     "block_size 8, 16 logical blocks, fp32 cache")
+    return perf
+
+
+def paged_timing(dev, *, nb, n_blocks, live):
+    """One decode launch (B 4, 9 heads over 3 KV heads, Dh 64, block size
+    8, fp32 cache, ``nb`` logical blocks with ``live`` of them filled per
+    row): the kernel, the plain version, one SDPA call over the gathered
+    K/V, and the bound."""
+    import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import mask_value, paged_attention
 
-    q, k, v, pos, tables, q_pos = arena(dev, live=(12, 12, 11, 12), seed=9)
+    q, k, v, pos, tables, q_pos = arena(dev, nb=nb, n_blocks=n_blocks,
+                                        live=live, seed=9)
     b, _, h, dh = q.shape
     hkv, g = 3, 3
     q4 = q.reshape(b, 1, hkv, g, dh).permute(0, 2, 1, 3, 4).reshape(
@@ -295,10 +341,10 @@ def paged_phase(dev):
         q4, k, v, pos, tables, q_pos, ql, sq=1, causal=True, window=None,
         neg=mask_value(torch.float32))
     ms = cuda_ms(kern)
-    plain_ms = cuda_ms(plain, iters=20)
+    plain_ms = cuda_ms(plain, iters=20 if nb <= 16 else 3, warmup=2)
     # yardstick: one SDPA call over the gathered, head-expanded K/V
     tl = tables.long()
-    nb, bs = tables.shape[1], k.shape[1]
+    bs = k.shape[1]
     gk = k[tl].reshape(b, nb * bs, hkv, dh).repeat_interleave(g, 2).transpose(1, 2)
     gv = v[tl].reshape(b, nb * bs, hkv, dh).repeat_interleave(g, 2).transpose(1, 2)
     gp = torch.where((tl == 0)[:, :, None], -1, pos[tl]).reshape(b, nb * bs)
@@ -312,10 +358,24 @@ def paged_phase(dev):
               + live_blocks * bs * 4 + tables.numel() * 4 + 2 * b * 4
               + q.numel() * 4)
     bound_ms, by = bound(nbytes, 4 * n_valid * h * dh)
-    return {"max_abs_err": err_max, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": by,
-            "timed": "one decode launch: B=4, H=9 over Hkv=3, Dh=64, "
-                     "block_size 8, 16 logical blocks, fp32 cache"}
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def extra_timings(dev, card):
+    """The shapes beside the kernels line: SWIS at the prefill row count
+    and paged attention over a long context, each on its own line."""
+    p = swis_layer_timing(dev, 256)
+    print(f"swis_matmul prefill layer (7 GEMMs at M=256, fp32 x) on {card}: "
+          f"kernel {p['ms']:.4f} ms, torch.matmul {p['library_ms']:.4f} ms, "
+          f"plain {p['plain_ms']:.4f} ms, bound {p['bound_ms']:.5f} ms "
+          f"({p['bound_by']})")
+    p = paged_timing(dev, nb=128, n_blocks=505,
+                     live=(125, 125, 124, 125))
+    print(f"paged_attention long context (B=4, 128 logical blocks, ~1000 "
+          f"tokens a row, fp32 cache) on {card}: kernel {p['ms']:.4f} ms, "
+          f"SDPA {p['library_ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, "
+          f"bound {p['bound_ms']:.6f} ms ({p['bound_by']})")
 
 
 # -- phase 4: the slice at full width ------------------------------------------
@@ -522,6 +582,7 @@ def main() -> int:
 
         # 3. kernels against their plain versions, then timing
         perf = {"swis_matmul": swis_phase(dev), "paged_attention": paged_phase(dev)}
+        extra_timings(dev, card)
 
         # 4. the slice at full width
         counts = slice_phase(dev, card, kernels)

@@ -30,7 +30,7 @@ _F = ctypes.c_float
 KERNEL = Kernel("paged_attention", {
     "paged_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    "paged_attention_smem_bytes": [_I, _I, _I],
+    "paged_attention_smem_bytes": [_I, _I, _I, _I, _I],
 })
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 256
@@ -86,14 +86,15 @@ def paged_attention(q4: torch.Tensor, k_arena: torch.Tensor,
     if q4.dtype != torch.float32:
         raise ValueError(f"q4 must be float32, got {q4.dtype}")
     lib = KERNEL.lib()
-    smem = lib.paged_attention_smem_bytes(sg, dh, bs)
+    kv_dtype = _KV_DTYPES[k_arena.dtype]
+    smem = lib.paged_attention_smem_bytes(kv_dtype, sg, dh, bs, nb)
     if smem > _MAX_SMEM:
         raise ValueError(f"{smem} bytes of shared memory needed for "
                          f"Sq*G={sg}, Dh={dh}, block_size={bs}; the card "
                          f"allows {_MAX_SMEM}")
     out = torch.empty((b, hkv, sg, dh), dtype=torch.float32, device=q4.device)
     KERNEL.call(
-        "paged_attention_launch", _KV_DTYPES[k_arena.dtype], q4.data_ptr(),
+        "paged_attention_launch", kv_dtype, q4.data_ptr(),
         k_arena.data_ptr(), v_arena.data_ptr(), pos_arena.data_ptr(),
         block_tables.data_ptr(), q_pos.data_ptr(), q_lens.data_ptr(),
         out.data_ptr(), b, hkv, sg, sg // sq, dh, nb, bs, int(causal),

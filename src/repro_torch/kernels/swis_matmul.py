@@ -82,6 +82,8 @@ def swis_matmul_packed(x: torch.Tensor, sign_plane: torch.Tensor,
             raise ValueError(f"{name} must be {dtypes[name]}, got {t.dtype}")
     if x.dtype not in _X_DTYPES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.data_ptr() % 16:  # the kernel stages x 16 bytes at a time
+        x = x.clone()
     m, k = x.shape
     n = sign_plane.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)

@@ -107,3 +107,122 @@ def test_engine_on_card_matches_cpu_path(cuda_device):  # noqa: F811
             assert eng.prefix_stats()["hits"] >= 1
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+# -- edges of the kernels' designs: row tiles, K splits, column tiles, clusters
+
+
+@pytest.mark.parametrize("method", ["swis", "swis_c"])
+@pytest.mark.parametrize("n_shifts", [2, 4, 5])
+def test_swis_kernel_tile_and_split_edges(cuda_device, method, n_shifts):  # noqa: F811
+    """M crosses the 4-, 8- and 32-row tiles, K = 1536 and 96 split
+    unevenly over the cluster's blocks and warps, N = 200 is not a multiple
+    of the 32-column tile (and N = 202 leaves the shift rows unaligned to
+    4 bytes for SWIS-C); group 16; every keep_slices; x at M = 9 starts off
+    a 16-byte boundary."""
+    g = torch.Generator(device=cuda_device).manual_seed(n_shifts)
+    group = 16
+    for k, n in ((1536, 200), (96, 200), (96, 202)):
+        w = torch.randn((k, n), generator=g, device=cuda_device) * 0.05
+        pw = packing.pack(swis.quantize(w, swis.QuantConfig(
+            method=method, n_shifts=n_shifts, group_size=group)))
+        for m in (1, 4, 8, 9, 256):
+            x = torch.randn((m * k + 1,), generator=g, device=cuda_device)
+            x = x[1:].view(m, k) if m == 9 else x[:-1].view(m, k)
+            for keep in (None,) + tuple(range(1, n_shifts + 1)):
+                before = sm.KERNEL.launches
+                got = ops.swis_matmul(x, pw, keep_slices=keep)
+                assert sm.KERNEL.launches == before + 1
+                want = ref.swis_matmul_ref(
+                    x, pw.sign_plane, pw.mask_planes, pw.shifts,
+                    pw.scale.reshape(-1).expand(n), group=group,
+                    consecutive=method == "swis_c", keep_slices=keep)
+                _close(got, want, 1e-5)
+
+
+def _arena(rng, *, b, sq, nb, live, hkv=3, g=3, dh=64, bs=8):
+    """Arena with the engine's invariants: trash block 0 with garbage
+    positions, trash-padded table tails, a partly filled last live block;
+    row r holds live[r] blocks (0 = an all-trash row)."""
+    n_blocks = sum(live) + 1
+    q = rng.normal(0, 1, (b, sq, hkv * g, dh)).astype(np.float32)
+    kv = rng.normal(0, 1, (2, n_blocks, bs, hkv, dh)).astype(np.float32)
+    pos = np.full((n_blocks, bs), -1, np.int32)
+    pos[0] = rng.integers(0, bs, (bs,))
+    tables = np.zeros((b, nb), np.int32)
+    q_pos = np.full((b,), 3, np.int32)
+    free = list(rng.permutation(np.arange(1, n_blocks)))
+    for r in range(b):
+        if live[r] == 0:
+            continue
+        n_tok = (live[r] - 1) * bs + int(rng.integers(1, bs + 1))
+        for j in range(live[r]):
+            blk = int(free.pop())
+            tables[r, j] = blk
+            filled = min(bs, n_tok - j * bs)
+            pos[blk, :filled] = np.arange(j * bs, j * bs + filled)
+        q_pos[r] = max(n_tok - sq, 0)
+    return q, kv, pos, tables, q_pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("nb", [1, 5, 128])
+def test_paged_kernel_split_edges(cuda_device, dtype, nb):  # noqa: F811
+    """nb crosses the warp split (4 a block) and the cluster split (up to 8
+    blocks); Sq = 4 with a zero q_lens, an all-trash row, a window; every
+    row compared with the plain version at 1e-5."""
+    rng = np.random.default_rng(nb)
+    live = (nb, 0, max(nb // 2, 1), max(nb - 1, 1))
+    for sq, q_lens, window in ((1, None, None), (4, [4, 0, 2, 1], None),
+                               (1, None, 12), (4, [1, 3, 0, 4], 6)):
+        q, kv, pos, tables, q_pos = _arena(rng, b=4, sq=sq, nb=nb, live=live)
+        ql = None if q_lens is None else np.array(q_lens, np.int32)
+        host = [torch.from_numpy(a) for a in (q, kv, pos, tables, q_pos)]
+        dev = [t.to(cuda_device) for t in host]
+        before = pa.KERNEL.launches
+        got = pa.paged_attention_decode(
+            dev[0], dev[1][0].to(dtype), dev[1][1].to(dtype), *dev[2:],
+            q_lens=None if ql is None else torch.from_numpy(ql).to(cuda_device),
+            window=window)
+        assert pa.KERNEL.launches == before + 1
+        want = pa.paged_attention_decode(
+            host[0], host[1][0].to(dtype), host[1][1].to(dtype), *host[2:],
+            q_lens=None if ql is None else torch.from_numpy(ql), window=window)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_paged_kernel_rows_off_16_bytes(cuda_device, dtype):  # noqa: F811
+    """Dh = 34: K/V rows are not a whole number of 16-byte pieces, so the
+    kernel copies them element by element; the result is the same."""
+    rng = np.random.default_rng(11)
+    q, kv, pos, tables, q_pos = _arena(rng, b=4, sq=2, nb=9, dh=34,
+                                       live=(9, 0, 4, 1))
+    host = [torch.from_numpy(a) for a in (q, kv, pos, tables, q_pos)]
+    dev = [t.to(cuda_device) for t in host]
+    got = pa.paged_attention_decode(dev[0], dev[1][0].to(dtype),
+                                    dev[1][1].to(dtype), *dev[2:], window=20)
+    want = pa.paged_attention_decode(host[0], host[1][0].to(dtype),
+                                     host[1][1].to(dtype), *host[2:], window=20)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_kernels_repeat_runs_bit_identical(cuda_device):  # noqa: F811
+    """The same inputs twice through each kernel give the same bits: the
+    designs reduce across warps and blocks in a fixed order."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    w = torch.randn((1536, 576), generator=g, device=cuda_device) * 0.05
+    pw = packing.pack(swis.quantize(w, swis.QuantConfig(
+        method="swis", n_shifts=4, group_size=4)))
+    for m in (4, 256):
+        x = torch.randn((m, 1536), generator=g, device=cuda_device)
+        assert torch.equal(ops.swis_matmul(x, pw), ops.swis_matmul(x, pw))
+    rng = np.random.default_rng(8)
+    q, kv, pos, tables, q_pos = _arena(rng, b=4, sq=1, nb=128,
+                                       live=(125, 0, 60, 127))
+    q, kv, pos, tables, q_pos = (torch.from_numpy(a).to(cuda_device)
+                                 for a in (q, kv, pos, tables, q_pos))
+    runs = [pa.paged_attention_decode(q, kv[0], kv[1], pos, tables, q_pos)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
