@@ -12,19 +12,34 @@ Phases, each fatal on failure (exit code 1, and no result line):
    seconds and the ``-Xptxas -v`` register and shared-memory lines.
 3. kernels against their plain PyTorch versions on the card, at the
    slice's shapes and the reference's test sweep, and each run twice on
-   the same inputs for bit-identical outputs; then each kernel's time at
+   the same inputs for bit-identical outputs (SWIS at M = 4 also with the
+   drafts' ``keep_slices=2``); then each kernel's time at
    the decode shapes beside its bound, the plain version's time and a
    library call's time (a yardstick only: the port never calls it), and
    on lines of their own the SWIS kernel at the prefill row count (M =
-   256) and paged attention over 128 logical blocks.
-4. the slice at full width: SWIS-packed smollm-135m (random weights from a
-   seed) serves 8 requests through ``ContinuousBatchingEngine``, with the
-   kernels' launch counts checked against the model calls made, a prefix
-   hit, and greedy tokens equal to the port's CPU path on the same packed
-   weights.
+   256) and with drafts' ``keep_slices=2``, and paged attention over 128
+   logical blocks and at the fused mixed step's Sq 32 and 64. Paged
+   attention is also held against its plain version at 16 to 128 queries
+   a row (up to 384 query rows).
+4. the first slice at full width: SWIS-packed smollm-135m (random weights
+   from a seed) serves 8 requests through ``ContinuousBatchingEngine``,
+   with the kernels' launch counts checked against the model calls made, a
+   prefix hit, and greedy tokens equal to the port's CPU path on the same
+   packed weights.
+5. the rest of the serve engine at full width and depth: (a) chunked
+   prefill of two 448-token prompts beside four short ones, (b) the same
+   traffic through the fused mixed step, (c) speculative decode with
+   2-plane drafts, (d) seeded sampling at temperature 0.8, (e) the
+   contiguous cache mode and ``DecodeEngine``. Each path's launches are
+   counted from 0 and checked against its engine's dispatch counters; its
+   tokens equal the plain decode path's on the card ((a)-(c)), a profiled
+   repeat run's, and, at a 4-layer cut of the weights, the CPU plain
+   path's (for (c), the proposed and accepted draft counts too). Each path
+   prints its wall and device-busy time per step.
 
-The line before the last is one JSON object ``{"kernels": [...]}``; the
-last is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object ``{"kernels": [...]}`` (each
+kernel's launches summed over the paths of phases 4 and 5, and by path);
+the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -38,6 +53,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 N_SHIFTS, GROUP = 4, 4
+DRAFT_SLICES = 2  # planes the speculative draft keeps (path c)
 # tests/test_kernels.py SWEEP: (M, K, N, group, n_shifts, x dtype name)
 KERNEL_SWEEP = [(8, 128, 128, 4, 2, "float32"), (16, 256, 256, 8, 3, "float32"),
                 (32, 512, 128, 4, 4, "float32"), (8, 64, 256, 16, 5, "float32"),
@@ -125,7 +141,9 @@ def swis_phase(dev):
     for m in (4, 64):
         for k, n in sorted(set(LAYER_GEMMS)):
             for dt in ("float32", "bfloat16"):
-                cases.append((m, k, n, GROUP, N_SHIFTS, dt, "swis", (None,)))
+                # M = 4 is also the draft launches' shape (keep_slices)
+                keep = (None, DRAFT_SLICES) if m == 4 else (None,)
+                cases.append((m, k, n, GROUP, N_SHIFTS, dt, "swis", keep))
     cases += [(m, k, n, g, s, dt, "swis", (None,))
               for m, k, n, g, s, dt in KERNEL_SWEEP]
     cases.append((37, 1536, 576, GROUP, N_SHIFTS, "float32", "swis", (None,)))
@@ -173,21 +191,23 @@ def swis_phase(dev):
     print("swis_matmul: repeat runs bit-identical (M 4 and 256, fp32 and bf16)")
 
     perf = swis_layer_timing(dev, 4)
-    perf["max_abs_err"] = errs["float32"]
+    perf["max_abs_err"] = max(perf["max_abs_err"], errs["float32"])
     perf["timed"] = ("one smollm-135m decode layer: 7 GEMMs at M=4 "
                      "(sum of per-GEMM means), fp32 x, 4 planes, group 4")
     return perf
 
 
-def swis_layer_timing(dev, m):
-    """One smollm-135m layer's 7 GEMMs at ``m`` rows of fp32 x: the kernel,
-    the plain version and ``torch.matmul`` on the dense fp32 weight (sums
-    of per-GEMM means), and the bound."""
+def swis_layer_timing(dev, m, keep_slices=None):
+    """One smollm-135m layer's 7 GEMMs at ``m`` rows of fp32 x, through the
+    top ``keep_slices`` planes (None: all): the kernel held against the
+    plain version (rtol 1e-5, atol 1e-5*max|ref|), then the kernel, the
+    plain version and ``torch.matmul`` on the dense fp32 weight those planes
+    give (sums of per-GEMM means), and the bound."""
     import torch
     from repro_torch.core.packing import PackedWeight
     from repro_torch.kernels import ops, ref
 
-    ms = plain_ms = lib_ms = bound_ms = 0.0
+    ms = plain_ms = lib_ms = bound_ms = err = 0.0
     by = set()
     per_gemm = []  # "KxN kernel/torch.matmul" in us
     for i, (k, n) in enumerate(LAYER_GEMMS):
@@ -197,25 +217,35 @@ def swis_layer_timing(dev, m):
                            GROUP, N_SHIFTS, k, n)
         x = torch.randn((m, k), device=dev)
         w = ref.dequant_ref(pw.sign_plane, pw.mask_planes, pw.shifts, scale,
-                            group=GROUP)
-        t = cuda_ms(lambda: ops.swis_matmul(x, pwn))
+                            group=GROUP, keep_slices=keep_slices)
+        got = ops.swis_matmul(x, pwn, keep_slices=keep_slices)
+        want = ref.swis_matmul_ref(x, pw.sign_plane, pw.mask_planes, pw.shifts,
+                                   scale, group=GROUP, keep_slices=keep_slices)
+        top = want.abs().max().item()
+        err = max(err, (got - want).abs().max().item())
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-5 * top),
+              f"swis_matmul timed shape M={m} K={k} N={n} keep={keep_slices}: "
+              f"max|err|={(got - want).abs().max().item():.3g} vs "
+              f"max|ref|={top:.3g}")
+        t = cuda_ms(lambda: ops.swis_matmul(x, pwn, keep_slices=keep_slices))
         plain_ms += cuda_ms(lambda: ref.swis_matmul_ref(
-            x, pw.sign_plane, pw.mask_planes, pw.shifts, scale, group=GROUP),
-            iters=20)
+            x, pw.sign_plane, pw.mask_planes, pw.shifts, scale, group=GROUP,
+            keep_slices=keep_slices), iters=20)
         t_lib = cuda_ms(lambda: torch.matmul(x, w))
         ms += t
         lib_ms += t_lib
         per_gemm.append(f"{k}x{n} {t * 1e3:.2f}/{t_lib * 1e3:.2f}")
+        planes = N_SHIFTS if keep_slices is None else keep_slices
         nbytes = (x.numel() * 4 + pw.sign_plane.numel() * 4
-                  + pw.mask_planes.numel() * 4 + pw.shifts.numel()
+                  + pw.mask_planes[0].numel() * 4 * planes + pw.shifts.numel()
                   + scale.numel() * 4 + m * n * 4)
         b, which = bound(nbytes, 2 * m * k * n)
         bound_ms += b
         by.add(which)
-    print(f"  swis_matmul per GEMM at M={m}, KxN kernel/torch.matmul us: "
-          + ", ".join(per_gemm))
+    print(f"  swis_matmul per GEMM at M={m}, keep_slices={keep_slices}, KxN "
+          f"kernel/torch.matmul us: " + ", ".join(per_gemm))
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms,
+            "bound_ms": bound_ms, "max_abs_err": err,
             "bound_by": "bytes" if by == {"bytes"} else "operations"}
 
 
@@ -311,6 +341,33 @@ def paged_phase(dev):
           f"plain version, all rows compared; max|err| {err_max:.3g} "
           f"(rtol = atol = 1e-5); repeat runs bit-identical")
 
+    # many queries a row, as the fused mixed step (Sq = prefill_chunk) and
+    # the verify launch give: q_lens 0, 1 and full; the kernel cuts the
+    # Sq*G query rows into tiles of at most 32
+    for sq in (16, 32, 64, 128):
+        nb = sq // 8 + 8
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            q, k, v, pos, tables, q_pos = arena(
+                dev, sq=sq, nb=nb, n_blocks=4 * nb + 1, seed=sq,
+                live=(nb, nb - 2, 3, sq // 8 + 1))
+            ql = torch.tensor([sq, 0, 1, sq], dtype=torch.int32, device=dev)
+            k, v = k.to(dt), v.to(dt)
+            got = paged_attention_decode(q, k, v, pos, tables, q_pos, q_lens=ql)
+            again = paged_attention_decode(q, k, v, pos, tables, q_pos,
+                                           q_lens=ql)
+            check(torch.equal(got, again),
+                  f"paged_attention Sq={sq} {dt}: repeat run differs")
+            want = plain_paged(q, k, v, pos, tables, q_pos, ql, None)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            err_max = max(err_max, err)
+            check(bool(torch.isfinite(got).all()) and torch.allclose(
+                got, want, rtol=1e-5, atol=1e-5),
+                f"paged_attention Sq={sq} x G=3 {dt}: max|err|={err:.3g} (1e-5)")
+    print(f"paged_attention: Sq 16/32/64/128 x G=3 (q_lens full, 0, 1, full) "
+          f"x 3 cache dtypes against the plain version, every row within "
+          f"1e-5, repeat runs bit-identical")
+
     perf = paged_timing(dev, nb=16, n_blocks=97, live=(12, 12, 11, 12))
     perf["max_abs_err"] = err_max
     perf["timed"] = ("one decode launch: B=4, H=9 over Hkv=3, Dh=64, "
@@ -318,37 +375,43 @@ def paged_phase(dev):
     return perf
 
 
-def paged_timing(dev, *, nb, n_blocks, live):
-    """One decode launch (B 4, 9 heads over 3 KV heads, Dh 64, block size
-    8, fp32 cache, ``nb`` logical blocks with ``live`` of them filled per
-    row): the kernel, the plain version, one SDPA call over the gathered
-    K/V, and the bound."""
+def paged_timing(dev, *, nb, n_blocks, live, sq=1, q_lens=None):
+    """One launch (9 heads over 3 KV heads, Dh 64, block size 8, fp32
+    cache, ``nb`` logical blocks with ``live`` of them filled per row, ``sq``
+    queries a row of which ``q_lens`` are real; a row with ``q_lens`` 1
+    decodes at its last position): the kernel, the plain version, one SDPA
+    call over the gathered K/V, and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import mask_value, paged_attention
 
-    q, k, v, pos, tables, q_pos = arena(dev, nb=nb, n_blocks=n_blocks,
-                                        live=live, seed=9)
-    b, _, h, dh = q.shape
+    b = len(live)
+    q, k, v, pos, tables, q_pos = arena(dev, b=b, nb=nb, n_blocks=n_blocks,
+                                        live=live, sq=sq, seed=9)
+    _, _, h, dh = q.shape
     hkv, g = 3, 3
-    q4 = q.reshape(b, 1, hkv, g, dh).permute(0, 2, 1, 3, 4).reshape(
-        b, hkv, g, dh).contiguous()
-    ql = torch.ones(b, dtype=torch.int32, device=dev)
-    kern = lambda: paged_attention(q4, k, v, pos, tables, q_pos, ql, sq=1,  # noqa: E731
+    ql = torch.tensor(q_lens or [sq] * b, dtype=torch.int32, device=dev)
+    tl = tables.long()
+    bs = k.shape[1]
+    gp = torch.where((tl == 0)[:, :, None], -1, pos[tl]).reshape(b, nb * bs)
+    q_pos = torch.where(ql == 1, gp.amax(dim=1), q_pos).to(torch.int32)
+    q4 = q.reshape(b, sq, hkv, g, dh).permute(0, 2, 1, 3, 4).reshape(
+        b, hkv, sq * g, dh).contiguous()
+    kern = lambda: paged_attention(q4, k, v, pos, tables, q_pos, ql, sq=sq,  # noqa: E731
                                    causal=True, window=None)
     plain = lambda: ref.paged_attention_ref(  # noqa: E731
-        q4, k, v, pos, tables, q_pos, ql, sq=1, causal=True, window=None,
+        q4, k, v, pos, tables, q_pos, ql, sq=sq, causal=True, window=None,
         neg=mask_value(torch.float32))
     ms = cuda_ms(kern)
     plain_ms = cuda_ms(plain, iters=20 if nb <= 16 else 3, warmup=2)
     # yardstick: one SDPA call over the gathered, head-expanded K/V
-    tl = tables.long()
-    bs = k.shape[1]
     gk = k[tl].reshape(b, nb * bs, hkv, dh).repeat_interleave(g, 2).transpose(1, 2)
     gv = v[tl].reshape(b, nb * bs, hkv, dh).repeat_interleave(g, 2).transpose(1, 2)
-    gp = torch.where((tl == 0)[:, :, None], -1, pos[tl]).reshape(b, nb * bs)
-    mask = ((gp >= 0) & (gp <= q_pos[:, None]))[:, None, None, :]
+    qi = torch.arange(sq, device=dev)
+    qp = q_pos[:, None] + qi[None, :]  # (B, Sq)
+    mask = ((gp[:, None, :] >= 0) & (gp[:, None, :] <= qp[:, :, None])
+            & (qi[None, :, None] < ql[:, None, None]))[:, None]
     qs = q.transpose(1, 2).contiguous()
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, gk, gv,
                                                             attn_mask=mask))
@@ -376,6 +439,27 @@ def extra_timings(dev, card):
           f"tokens a row, fp32 cache) on {card}: kernel {p['ms']:.4f} ms, "
           f"SDPA {p['library_ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, "
           f"bound {p['bound_ms']:.6f} ms ({p['bound_by']})")
+    # the fused mixed step of the serve bench's long_prompt shape: 4 decode
+    # rows and 2 rows of a 32-token chunk over 64 logical blocks (max_len 512)
+    p = paged_timing(dev, nb=64, n_blocks=161, sq=32,
+                     live=(9, 10, 9, 8, 30, 30), q_lens=[1, 1, 1, 1, 32, 32])
+    print(f"paged_attention mixed launch (B=6: 4 decode rows + 2 rows of a "
+          f"32-token chunk, Sq 32 x G 3 = 96 query rows, 64 logical blocks, "
+          f"fp32 cache) on {card}: kernel {p['ms']:.4f} ms, SDPA "
+          f"{p['library_ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, bound "
+          f"{p['bound_ms']:.6f} ms ({p['bound_by']})")
+    p = paged_timing(dev, nb=64, n_blocks=161, sq=64,
+                     live=(9, 10, 9, 8, 30, 30), q_lens=[1, 1, 1, 1, 64, 64])
+    print(f"paged_attention mixed launch at Sq 64 (192 query rows, same "
+          f"arena) on {card}: kernel {p['ms']:.4f} ms, SDPA "
+          f"{p['library_ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, bound "
+          f"{p['bound_ms']:.6f} ms ({p['bound_by']})")
+    p = swis_layer_timing(dev, 4, keep_slices=DRAFT_SLICES)
+    print(f"swis_matmul draft layer (7 GEMMs at M=4, keep_slices="
+          f"{DRAFT_SLICES}, fp32 x) on {card}: kernel {p['ms']:.4f} ms, "
+          f"torch.matmul {p['library_ms']:.4f} ms, plain {p['plain_ms']:.4f} "
+          f"ms, bound {p['bound_ms']:.5f} ms ({p['bound_by']}); max|err| "
+          f"{p['max_abs_err']:.3g} against the plain version")
 
 
 # -- phase 4: the slice at full width ------------------------------------------
@@ -539,7 +623,236 @@ def slice_phase(dev, card, kernels):
             raise PhaseError(f"greedy tokens differ from the CPU path "
                              f"(request {r}, step {step})")
     print("greedy tokens: 8/8 requests identical to the CPU plain path")
-    return counts
+    return counts, gpu
+
+
+# -- phase 5: the rest of the serve engine at full width ------------------------
+
+
+def long_traffic(vocab):
+    """The serve bench's long_prompt shape: two 448-token prompts (14
+    chunks of 32) arrive beside four 64-token prompts; 16 tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    short = [rng.integers(0, vocab, 64).astype(np.int32) for _ in range(4)]
+    long = [rng.integers(0, vocab, 448).astype(np.int32) for _ in range(2)]
+    return [(p, 16) for p in (short[0], short[1], long[0], short[2], short[3],
+                              long[1])]
+
+
+def drive(engine, traffic, temperature=0.0, profiled=False):
+    """Submit ``traffic`` [(prompt, n_tokens)] (seed i for request i when
+    sampling) and step to idle. Returns (tokens per request, steps, wall
+    ms per step, device-busy ms per step or None). ``profiled`` runs it
+    under ``torch.profiler`` for the device time, whose wall time is then
+    not the engine's own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import SamplingParams
+
+    engine.reset()
+    rids = [engine.submit(p, SamplingParams(
+                max_tokens=n, temperature=temperature,
+                seed=i if temperature else None))
+            for i, (p, n) in enumerate(traffic)]
+    out, steps = {}, 0
+    sync = (torch.cuda.synchronize if engine.device.type == "cuda"
+            else (lambda: None))
+    prof = profile(activities=[ProfilerActivity.CUDA]) if profiled else None
+    if prof:
+        prof.__enter__()
+    sync()
+    t0 = time.perf_counter()
+    while engine.scheduler.pending():
+        out.update({f.rid: f.tokens for f in engine.step()})
+        steps += 1
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    busy = None
+    if prof:
+        prof.__exit__(None, None, None)
+        busy = device_ms(prof) / steps
+    return [out[r] for r in rids], steps, wall, busy
+
+
+def device_ms(prof):
+    """Device time (ms) of every kernel a finished profiler saw."""
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()) / 1e3
+
+
+def same_tokens(label, got, want, traffic, models):
+    """Token lists equal, or print the first mismatch with the top-2 logits
+    of each side (``models``: [(name, model, params, device)]) and fail."""
+    for r, (a, b) in enumerate(zip(got, want)):
+        if len(a) != len(b) or (a != b).any():
+            step = int((a != b).argmax()) if len(a) == len(b) else 0
+            seq = list(traffic[r][0]) + [int(t) for t in a[:step]]
+            tops = "; ".join(f"top-2 {name} {top2(m, p, seq, d)}"
+                             for name, m, p, d in models)
+            print(f"MISMATCH {label}: request {r} step {step}: "
+                  f"{a[step]} vs {b[step]}; {tops}")
+            raise PhaseError(f"{label}: tokens differ (request {r}, step {step})")
+
+
+def paths_phase(dev, card, kernels, cfg, params):
+    """Paths (a) chunked prefill, (b) the fused mixed step, (c) speculative
+    decode, (d) seeded sampling and (e) the contiguous mode and
+    ``DecodeEngine``, at full smollm-135m width and depth on the card
+    (``params``: the packed weights of phase 4). Each path's launches are
+    counted from 0 and held against its engine's model calls; (a)-(c)
+    against the plain decode path's tokens on the card; a profiled repeat
+    run gives the device time and the same tokens; and every path at a
+    4-layer cut of the same weights against the CPU plain path (for (c),
+    the draft counts too)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.swis import QuantConfig
+    from repro_torch.models import params as pp
+    from repro_torch.serve import (ContinuousBatchingEngine, DecodeEngine,
+                                   EngineConfig)
+
+    qcfg = QuantConfig(method="swis", n_shifts=N_SHIFTS, group_size=GROUP)
+    base = dict(n_slots=4, block_size=8, packed=True, quant_cfg=qcfg,
+                use_paged_kernel=True)
+    long = long_traffic(cfg.vocab)
+    short = [(p, 32) for p in prompts(cfg.vocab, seed=2)[:4]]
+    sampled = [(p, 16) for p in prompts(cfg.vocab, seed=3)]
+    paths = [  # (label, engine options, traffic, temperature, plain options)
+        ("a chunked", dict(max_len=512, prefill_chunk=32), long, 0.0,
+         dict(max_len=512)),
+        ("b fused", dict(max_len=512, prefill_chunk=64, fused_step=True),
+         long, 0.0, dict(max_len=512)),
+        ("c spec", dict(max_len=128, spec_decode=True, spec_k=3,
+                        draft_slices=DRAFT_SLICES), short, 0.0,
+         dict(max_len=128)),
+        ("d sampled", dict(max_len=128), sampled, 0.8, None),
+        ("e contiguous", dict(max_len=128, prefix_cache=False,
+                              use_paged_kernel=False), sampled[:4], 0.0, None),
+    ]
+    per_layer = 7  # SWIS GEMMs per layer
+    by_path = {}
+    plain_cache = {}
+    cut = pp.tree_map(lambda a: a, params)
+    cut["blocks"] = pp.tree_map(lambda a: a[:4].contiguous(), params["blocks"])
+    cfg4 = cfg.replace(n_layers=4)
+    cut_cpu = pp.tree_map(lambda a: a.cpu(), cut)
+    for label, opts, traffic, temp, plain_opts in paths:
+        eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**{**base, **opts}),
+                                       device=dev)
+        for kern in kernels:
+            kern.launches = 0
+        toks, steps, wall, _ = drive(eng, traffic, temp)
+        counts = {kern.name: kern.launches for kern in kernels}
+        calls, arena_calls = eng.model_calls(), eng.arena_calls()
+        check(counts["swis_matmul"] == per_layer * cfg.n_layers * calls,
+              f"{label}: swis_matmul launches {counts['swis_matmul']} != "
+              f"{per_layer * cfg.n_layers} x {calls} model calls")
+        check(counts["paged_attention"] == cfg.n_layers * arena_calls,
+              f"{label}: paged_attention launches {counts['paged_attention']} "
+              f"!= {cfg.n_layers} x {arena_calls} arena calls")
+        by_path[label] = counts
+        again, _, _, busy = drive(eng, traffic, temp, profiled=True)
+        same_tokens(f"{label} repeat run", again, toks, traffic, [])
+        extra = ""
+        if eng.spec_decode:
+            extra = (f"; spec accepted {eng.spec_accepted} of "
+                     f"{eng.spec_proposed} drafts (accept rate "
+                     f"{eng.spec_accepted / max(eng.spec_proposed, 1):.3f})")
+        print(f"path {label} on {card}: {steps} steps, {wall:.2f} ms/step "
+              f"wall, device busy {busy:.3f} ms/step (profiled run); "
+              f"dispatches prefill {eng.n_prefill_calls}, chunk "
+              f"{eng.n_chunk_calls}, mixed {eng.n_mixed_steps}, decode "
+              f"{eng.n_decode_steps}, draft {eng.n_draft_steps}, verify "
+              f"{eng.n_verify_steps}; launches {counts}{extra}")
+        if plain_opts is not None:
+            key = tuple(sorted(plain_opts.items())) + (id(traffic),)
+            if key not in plain_cache:
+                plain = ContinuousBatchingEngine(
+                    cfg, params, EngineConfig(**{**base, **plain_opts}), device=dev)
+                plain_cache[key] = (drive(plain, traffic)[0], plain)
+            want, plain = plain_cache[key]
+            same_tokens(f"{label} vs plain decode on the card", toks, want,
+                        traffic, [("card", eng.model, eng.params, dev)])
+        # the same path at a 4-layer cut, on the card and on the CPU
+        note = ""
+        card4 = ContinuousBatchingEngine(cfg4, cut, EngineConfig(**{**base, **opts}),
+                                         device=dev)
+        got = drive(card4, traffic, temp)[0]
+        cpu = ContinuousBatchingEngine(cfg4, cut_cpu, EngineConfig(**{**base, **opts}),
+                                       device="cpu")
+        t0 = time.perf_counter()
+        want = drive(cpu, traffic, temp)[0]
+        same_tokens(f"{label} (4-layer cut) vs the CPU plain path", got, want,
+                    traffic, [("card", cpu.model, cut, dev),
+                              ("cpu", cpu.model, cut_cpu, "cpu")])
+        if eng.spec_decode:
+            # the verify launch fixes every token, so only the accept counts
+            # show a wrong draft
+            spec = ((card4.spec_proposed, card4.spec_accepted),
+                    (cpu.spec_proposed, cpu.spec_accepted))
+            check(spec[0] == spec[1], f"{label} (4-layer cut): drafts "
+                  f"(proposed, accepted) {spec[0]} on the card, {spec[1]} on "
+                  f"the CPU plain path")
+            note = f"; drafts (proposed, accepted) {spec[0]} as on the CPU"
+        held = ("the plain decode path on the card, " if plain_opts else "")
+        print(f"  {label}: {len(traffic)} requests; tokens equal to {held}"
+              f"the profiled repeat run, and at the 4-layer cut to the CPU "
+              f"plain path (CPU {time.perf_counter() - t0:.1f} s)"
+              f"{note}")
+        del eng
+
+    # DecodeEngine, greedy and sampled, against the contiguous engine's
+    # generate() on the card and the CPU plain path at the 4-layer cut
+    import numpy as np
+
+    batch = np.stack([p for p, _ in sampled[:4]])
+    for temp in (0.0, 0.8):
+        dec = DecodeEngine(cfg, params, max_len=128, batch=4, packed=True,
+                           quant_cfg=qcfg, device=dev)
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        out = dec.generate(batch, 16, temperature=temp, seed=5)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 16
+        counts = {kern.name: kern.launches for kern in kernels}
+        check(counts == {"swis_matmul": per_layer * cfg.n_layers * 16,
+                         "paged_attention": 0},
+              f"DecodeEngine launches {counts} (16 model calls)")
+        by_path[f"e DecodeEngine T={temp}"] = counts
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = dec.generate(batch, 16, temperature=temp, seed=5)
+            torch.cuda.synchronize()
+        busy = device_ms(prof) / 16
+        same_tokens(f"DecodeEngine T={temp} repeat run", list(again[:, 64:]),
+                    list(out[:, 64:]), [(p, 16) for p in batch], [])
+        cbe = ContinuousBatchingEngine(
+            cfg, params, EngineConfig(**{**base, "max_len": 128,
+                                         "prefix_cache": False,
+                                         "use_paged_kernel": False}), device=dev)
+        traffic = [(p, 16) for p in batch]
+        same_tokens(f"DecodeEngine T={temp} vs ContinuousBatchingEngine."
+                    f"generate", list(out[:, 64:]),
+                    list(cbe.generate(batch, 16, temperature=temp,
+                                      seed=5)[:, 64:]), traffic, [])
+        got = DecodeEngine(cfg4, cut, max_len=128, batch=4, packed=True,
+                           quant_cfg=qcfg, device=dev).generate(
+            batch, 16, temperature=temp, seed=5)
+        want = DecodeEngine(cfg4, cut_cpu, max_len=128, batch=4, packed=True,
+                            quant_cfg=qcfg, device="cpu").generate(
+            batch, 16, temperature=temp, seed=5)
+        same_tokens(f"DecodeEngine T={temp} (4-layer cut) vs the CPU plain "
+                    f"path", list(got[:, 64:]), list(want[:, 64:]), traffic,
+                    [("card", dec.model, cut, dev)])
+        print(f"path e DecodeEngine T={temp} on {card}: 16 lockstep steps at "
+              f"{wall:.2f} ms/step wall, device busy {busy:.3f} ms/step "
+              f"(profiled run); launches {counts}; tokens equal to the "
+              f"profiled repeat run, ContinuousBatchingEngine.generate "
+              f"(contiguous) and, at the 4-layer cut, to the CPU plain path")
+    return by_path
 
 
 def main() -> int:
@@ -584,8 +897,12 @@ def main() -> int:
         perf = {"swis_matmul": swis_phase(dev), "paged_attention": paged_phase(dev)}
         extra_timings(dev, card)
 
-        # 4. the slice at full width
-        counts = slice_phase(dev, card, kernels)
+        # 4. the first slice's path at full width
+        counts, gpu = slice_phase(dev, card, kernels)
+
+        # 5. the rest of the serve engine at full width
+        by_path = {"phase 4 greedy block engine": counts}
+        by_path.update(paths_phase(dev, card, kernels, gpu.cfg, gpu.params))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -600,7 +917,9 @@ def main() -> int:
     for name, (source, replaces) in meta.items():
         p = perf[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": counts[name],
+                     "replaces": replaces,
+                     "launches": sum(c[name] for c in by_path.values()),
+                     "launches_by_path": {k: c[name] for k, c in by_path.items()},
                      "max_abs_err": p["max_abs_err"], "ms": p["ms"],
                      "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
                      "bound_by": p["bound_by"], "library_ms": p["library_ms"],

@@ -31,6 +31,13 @@
 //     memory at once (16-byte `cp.async` where rows allow it), then scores them
 //     for all Sq*G rows and updates its own (m, l, acc) block by block, with the
 //     recurrence of the TPU kernel;
+//   * the query rows are cut into the fewest equal row tiles of at most 32
+//     rows whose staging (scaled queries, scores, per-warp accumulators) fits
+//     the shared memory, one cluster per (b, kv-head, tile): a verify or mixed
+//     launch with many queries (Sq*G up to prefill_chunk*G) runs whatever its
+//     Sq, with more blocks in flight, and a decode launch stays one tile. Rows
+//     never interact, so tiles change no result. A masked score skips its dot
+//     product (the padded queries of a mixed launch's decode rows);
 //   * the warps' partials are merged in shared memory, and the blocks' partials
 //     by the cluster's first block through distributed shared memory, both in a
 //     fixed order, so the result does not depend on scheduling and one launch
@@ -64,6 +71,7 @@ constexpr int THREADS = WARPS * 32;
 constexpr int MAX_CLUSTER = 8;
 constexpr int MAX_CHUNK = 8;
 constexpr int MAX_SMEM = 232448;
+constexpr int MAX_TILE_ROWS = 32;  // query rows a block stages at most
 
 struct Args {
   const float* q4;
@@ -79,6 +87,8 @@ struct Args {
   int blocks_per_cta;  // logical blocks per cluster rank
   int chunk;           // logical blocks a warp stages at once
   int vec;             // 1: K/V rows are copied 16 bytes at a time
+  int rows;            // query rows per row tile (the last tile may hold fewer)
+  int tiles;           // row tiles per (b, kv-head)
 };
 
 // Shared-memory layout, in bytes; every region starts 16-byte aligned. All
@@ -123,19 +133,27 @@ __host__ __device__ inline Layout make_layout(int esize, int sg, int dh, int bs,
 }
 
 struct Config {
-  int cs, bpc, chunk;
+  int cs, bpc, chunk, rows, tiles;
   Layout L;
 };
 
+// The query rows are cut into the fewest equal tiles of at most
+// MAX_TILE_ROWS rows whose staging fits the shared memory (each tile a
+// cluster of its own, K/V staged once per tile); within a tile, a warp
+// stages as many logical blocks at once as still fit.
 Config make_config(int esize, int sg, int dh, int bs, int nb) {
   Config c;
   c.cs = std::min(MAX_CLUSTER, (nb + WARPS - 1) / WARPS);
   c.bpc = (nb + c.cs - 1) / c.cs;
-  c.chunk = std::min(MAX_CHUNK, (c.bpc + WARPS - 1) / WARPS);
-  c.L = make_layout(esize, sg, dh, bs, c.bpc, c.chunk);
-  while (c.chunk > 1 && c.L.total > MAX_SMEM) {
-    --c.chunk;
-    c.L = make_layout(esize, sg, dh, bs, c.bpc, c.chunk);
+  for (c.tiles = (sg + MAX_TILE_ROWS - 1) / MAX_TILE_ROWS;; ++c.tiles) {
+    c.rows = (sg + c.tiles - 1) / c.tiles;
+    c.chunk = std::min(MAX_CHUNK, (c.bpc + WARPS - 1) / WARPS);
+    c.L = make_layout(esize, c.rows, dh, bs, c.bpc, c.chunk);
+    while (c.chunk > 1 && c.L.total > MAX_SMEM) {
+      --c.chunk;
+      c.L = make_layout(esize, c.rows, dh, bs, c.bpc, c.chunk);
+    }
+    if (c.L.total <= MAX_SMEM || c.rows == 1) break;
   }
   return c;
 }
@@ -173,11 +191,13 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(const Args a) 
   const int rank = (int)cluster.block_rank();
   const int cs = (int)cluster.num_blocks();
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int sg = a.sg, dh = a.dh, bs = a.bs, hkv = a.hkv;
+  const int b = blockIdx.z / a.tiles;
+  const int row0 = (blockIdx.z % a.tiles) * a.rows;  // this tile's first query row
+  const int sg = min(a.rows, a.sg - row0);            // query rows in this tile
+  const int dh = a.dh, bs = a.bs, hkv = a.hkv;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  const Layout L = make_layout((int)sizeof(T), sg, dh, bs, a.blocks_per_cta, a.chunk);
+  const Layout L = make_layout((int)sizeof(T), a.rows, dh, bs, a.blocks_per_cta, a.chunk);
 
   float* qs = (float*)(smem + L.qs);
   int* tab = (int*)(smem + L.tab);
@@ -195,7 +215,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(const Args a) 
 
   const int qp = a.q_pos[b];
   const int ql = a.q_lens[b];
-  const size_t qoff = ((size_t)b * hkv + h) * sg * dh;
+  const size_t qoff = (((size_t)b * hkv + h) * a.sg + row0) * dh;
   const int j_lo = rank * a.blocks_per_cta;
   const int j_hi = min(a.nb, j_lo + a.blocks_per_cta);
 
@@ -257,30 +277,34 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(const Args a) 
     for (int c = 0; c < nc; ++c) {
       const T* kb = kst + c * bs * kvs;
       const T* vb = vst + c * bs * kvs;
-      // scores of every (row, position) of the block
+      // scores of every (row, position) of the block; a masked score is
+      // `neg` whatever the dot product, so it is not computed
       for (int i = lane; i < sg * bs; i += 32) {
         const int r = i / bs;
         const int t = i - r * bs;
-        const float* qr = qs + r * qst;
-        const T* kr = kb + t * kvs;
-        float s0 = 0.f, s1 = 0.f;
-        int d = 0;
-        for (; d + 4 <= dh; d += 4) {
-          const float4 qv = *(const float4*)(qr + d);
-          const float4 kv = load4(kr + d);
-          s0 = fmaf(qv.x, kv.x, s0);
-          s1 = fmaf(qv.y, kv.y, s1);
-          s0 = fmaf(qv.z, kv.z, s0);
-          s1 = fmaf(qv.w, kv.w, s1);
-        }
-        for (; d < dh; ++d) s0 = fmaf(qr[d], to_f32(kr[d]), s0);
-        const float s = s0 + s1;
-        const int qi = r / a.g;
+        const int qi = (row0 + r) / a.g;
         const int p = ps[c * bs + t];
         bool valid = p >= 0 && qi < ql;
         if (a.causal) valid = valid && p <= qp + qi;
         if (a.has_window) valid = valid && p > qp + qi - a.window;
-        sc[i] = valid ? s : a.neg;
+        float s = a.neg;
+        if (valid) {
+          const float* qr = qs + r * qst;
+          const T* kr = kb + t * kvs;
+          float s0 = 0.f, s1 = 0.f;
+          int d = 0;
+          for (; d + 4 <= dh; d += 4) {
+            const float4 qv = *(const float4*)(qr + d);
+            const float4 kv = load4(kr + d);
+            s0 = fmaf(qv.x, kv.x, s0);
+            s1 = fmaf(qv.y, kv.y, s1);
+            s0 = fmaf(qv.z, kv.z, s0);
+            s1 = fmaf(qv.w, kv.w, s1);
+          }
+          for (; d < dh; ++d) s0 = fmaf(qr[d], to_f32(kr[d]), s0);
+          s = s0 + s1;
+        }
+        sc[i] = s;
       }
       __syncwarp();
       // the online-softmax step of each row
@@ -379,7 +403,7 @@ int launch(const Args& a, const Config& c, int B, cudaStream_t st) {
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(c.cs, a.hkv, B);
+  cfg.gridDim = dim3(c.cs, a.hkv, B * c.tiles);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -399,7 +423,7 @@ int esize_of(int kv_dtype) { return kv_dtype == 0 ? 4 : 2; }
 
 }  // namespace
 
-// Dynamic shared memory the kernel needs, in bytes (the wrapper checks it
+// Dynamic shared memory one block needs, in bytes (the wrapper checks it
 // against the card's limit before launching).
 extern "C" int paged_attention_smem_bytes(int kv_dtype, int sg, int dh, int bs, int nb) {
   return (int)make_config(esize_of(kv_dtype), sg, dh, bs, nb).L.total;
@@ -440,6 +464,8 @@ extern "C" int paged_attention_launch(int kv_dtype, const void* q4, const void* 
   a.neg = neg;
   a.blocks_per_cta = c.bpc;
   a.chunk = c.chunk;
+  a.rows = c.rows;
+  a.tiles = c.tiles;
   a.vec = ((size_t)dh * esize) % 16 == 0 && ((uintptr_t)k & 15u) == 0 &&
           ((uintptr_t)v & 15u) == 0;
   cudaStream_t st = (cudaStream_t)stream;

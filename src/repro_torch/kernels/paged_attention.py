@@ -87,11 +87,13 @@ def paged_attention(q4: torch.Tensor, k_arena: torch.Tensor,
         raise ValueError(f"q4 must be float32, got {q4.dtype}")
     lib = KERNEL.lib()
     kv_dtype = _KV_DTYPES[k_arena.dtype]
+    # the kernel cuts the query rows into tiles that fit; this holds only
+    # when a single row does not
     smem = lib.paged_attention_smem_bytes(kv_dtype, sg, dh, bs, nb)
     if smem > _MAX_SMEM:
         raise ValueError(f"{smem} bytes of shared memory needed for "
-                         f"Sq*G={sg}, Dh={dh}, block_size={bs}; the card "
-                         f"allows {_MAX_SMEM}")
+                         f"Dh={dh}, block_size={bs}; the card allows "
+                         f"{_MAX_SMEM}")
     out = torch.empty((b, hkv, sg, dh), dtype=torch.float32, device=q4.device)
     KERNEL.call(
         "paged_attention_launch", kv_dtype, q4.data_ptr(),
@@ -122,8 +124,9 @@ def paged_attention_decode(q: torch.Tensor, k_arena: torch.Tensor,
     q4 = (q.reshape(b, s, hkv, g, dh).permute(0, 2, 1, 3, 4)
           .reshape(b, hkv, s * g, dh).float().contiguous())
     out = paged_attention(
-        q4, k_arena, v_arena, pos_arena, block_tables.to(torch.int32),
-        q_pos.to(torch.int32), q_lens.to(torch.int32), sq=s, causal=causal,
-        window=window)
+        q4, k_arena, v_arena, pos_arena,
+        block_tables.to(torch.int32).contiguous(),
+        q_pos.to(torch.int32).contiguous(), q_lens.to(torch.int32).contiguous(),
+        sq=s, causal=causal, window=window)
     return (out.reshape(b, hkv, s, g, dh).permute(0, 2, 1, 3, 4)
             .reshape(b, s, h, dh).to(q.dtype))

@@ -4,10 +4,11 @@ Ported: GQA self-attention with RoPE, the KV-chunked online-softmax
 prefill (:func:`chunked_attention`), the single-einsum decode
 (:func:`full_attention`), and the cache paths serving reaches —
 whole-prompt and suffix prefill writes into a per-slot working tree, and
-block-table decode over the physical-block arena, either through the paged
-attention kernel or through the materialized gather. The fused ``q_lens``
-mixed step, cross-attention and the contiguous ring modes wait for later
-slices and raise.
+block-table decode and the fused ``q_lens`` mixed step over the
+physical-block arena, either through the paged attention kernel or through
+the materialized gather, and the contiguous ring modes (per-slot decode,
+lockstep decode, ring-tail prefill). Cross-attention waits for a later
+slice and raises.
 
 Caches are updated in place where the reference returned updated copies
 (and donated the arena): the returned cache is the same dict, mutated.
@@ -118,17 +119,32 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                     cache: Optional[dict] = None,
                     cache_index=None,
                     block_tables: Optional[torch.Tensor] = None,
-                    attend_cache: bool = False, paged: bool = False):
+                    attend_cache: bool = False, paged: bool = False,
+                    q_lens: Optional[torch.Tensor] = None):
     """Returns (out (B, S, D), cache_or_None).
 
-    ``cache`` is a per-slot tree {'k', 'v', 'pos'} with a (B, cache_len)
-    position plane. With a scalar ``cache_index`` the S tokens are written
-    at rows [cache_index, cache_index + S) (whole-prompt or suffix
-    prefill); ``attend_cache`` makes them attend over the whole updated
-    cache instead of only their own K/V. With a (B,) ``cache_index`` and
-    ``block_tables`` the cache is the physical-block arena and each row
-    decodes one token through its table; ``paged`` runs the paged
-    attention kernel instead of materializing the gathered K/V.
+    ``cache`` is a tree {'k', 'v', 'pos'} whose position plane is shared
+    (cache_len,) or per-slot (B, cache_len); the write mode follows the
+    reference:
+
+    * ``block_tables`` with ``q_lens`` (the fused mixed step, and both
+      speculative launches): row r carries ``q_lens[r]`` real tokens from
+      its own ``cache_index[r]``; every valid token is written into the
+      physical-block arena through the row's table inside this call,
+      invalid ones go to the trash block 0 with pos -1, and only then does
+      attention read the arena through the tables (write before attend:
+      rejected drafts beyond the query positions stay causally masked);
+    * ``block_tables`` alone: block-table decode, one token per row;
+    * a (B,) ``cache_index`` without tables: per-slot decode into
+      contiguous rows, each wrapping at its own ring position;
+    * a scalar ``cache_index``: a prompt of at least ``cache_len`` tokens
+      keeps its last ``cache_len`` in ring order; one token is a lockstep
+      decode; otherwise the S tokens land at [cache_index, cache_index + S)
+      (whole-prompt, suffix or chunk prefill), and ``attend_cache`` makes
+      them attend over the whole updated cache instead of their own K/V.
+
+    ``paged`` runs the paged attention kernel over the arena instead of
+    materializing the gathered K/V.
     """
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, s, _ = x.shape
@@ -138,71 +154,114 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     q = rope(q, _pos2(positions), cfg.rope_theta)
     k = rope(k, _pos2(positions), cfg.rope_theta)
 
+    def project(out):
+        return dense(p["wo"], out.reshape(b, s, h * dh), cfg)
+
     if cache is None:
         out = chunked_attention(q, k, v, q_pos=positions, kv_pos=positions,
                                 causal=causal, window=window,
                                 chunk=cfg.attn_chunk)
-        return dense(p["wo"], out.reshape(b, s, h * dh), cfg), None
+        return project(out), None
 
     ck, cv, cp = cache["k"], cache["v"], cache["pos"]
     cache_len = ck.shape[1]
-    if cp.ndim != 2:
-        raise NotImplementedError("only per-slot caches are ported")
+    per_slot = cp.ndim == 2
     kd, vd = k.to(ck.dtype), v.to(cv.dtype)
     new_pos = positions.to(torch.int32)
     idx = cache_index
-    if torch.is_tensor(idx) and idx.ndim == 1:
-        if block_tables is None:
-            raise NotImplementedError(
-                "per-slot decode without block tables (contiguous cache "
-                "mode) is not ported yet")
-        if s != 1:
-            raise ValueError(f"block-table decode feeds one token per row, got {s}")
-        # row r's token lands in logical block idx[r] // bs at offset
-        # idx[r] % bs of the physical block its table maps that block to
-        bi = torch.div(idx, cache_len, rounding_mode="floor").long()
-        off = torch.remainder(idx, cache_len).long()
-        phys = torch.gather(block_tables.long(), 1, bi[:, None])[:, 0]
-        ck[phys, off] = kd[:, 0]
-        cv[phys, off] = vd[:, 0]
-        cp[phys, off] = new_pos[:, 0]
+    per_row = torch.is_tensor(idx) and idx.ndim == 1
+    if block_tables is not None:
+        if not (per_row and per_slot):
+            raise ValueError("block tables need (B,) cache indices and a "
+                             "per-slot cache")
+        tl = block_tables.long()
+        nb = tl.shape[1]
+        if q_lens is not None:
+            # row r writes at positions idx[r] + [0, S); its valid tokens
+            # land in the blocks it owns (they never collide across rows),
+            # the rest in the trash block
+            tok_valid = (torch.arange(s, device=x.device)[None, :]
+                         < q_lens[:, None])
+            bi = torch.clamp(torch.div(new_pos, cache_len,
+                                       rounding_mode="floor"), 0, nb - 1).long()
+            phys = torch.where(tok_valid, torch.gather(tl, 1, bi), 0)
+            fp = phys.reshape(-1)
+            fo = torch.remainder(new_pos, cache_len).long().reshape(-1)
+            ck[fp, fo] = kd.reshape((b * s,) + kd.shape[2:])
+            cv[fp, fo] = vd.reshape((b * s,) + vd.shape[2:])
+            cp[fp, fo] = torch.where(tok_valid, new_pos, -1).reshape(-1)
+        else:
+            if s != 1:
+                raise ValueError(
+                    f"block-table decode feeds one token per row, got {s}")
+            # row r's token lands in logical block idx[r] // bs at offset
+            # idx[r] % bs of the physical block its table maps that block to
+            bi = torch.div(idx, cache_len, rounding_mode="floor").long()
+            off = torch.remainder(idx, cache_len).long()
+            phys = torch.gather(tl, 1, bi[:, None])[:, 0]
+            ck[phys, off] = kd[:, 0]
+            cv[phys, off] = vd[:, 0]
+            cp[phys, off] = new_pos[:, 0]
         if paged:
             out = paged_attention_decode(q, ck, cv, cp, block_tables,
-                                         positions[:, 0], causal=causal,
-                                         window=window)
+                                         new_pos[:, 0], q_lens=q_lens,
+                                         causal=causal, window=window)
+            return project(out), cache
+        gk = ck[tl].reshape((b, nb * cache_len) + ck.shape[2:])
+        gv = cv[tl].reshape((b, nb * cache_len) + cv.shape[2:])
+        # logical blocks mapped to the trash block 0 are invalid, whatever
+        # block 0's pos plane holds
+        gp = torch.where((tl == 0)[:, :, None], -1,
+                         cp[tl]).reshape(b, nb * cache_len)
+        if q_lens is not None:
+            out = chunked_attention(q, gk, gv, q_pos=positions, kv_pos=gp,
+                                    causal=causal, window=window,
+                                    chunk=cfg.attn_chunk)
         else:
-            nb = block_tables.shape[1]
-            tl = block_tables.long()
-            gk = ck[tl].reshape((b, nb * cache_len) + ck.shape[2:])
-            gv = cv[tl].reshape((b, nb * cache_len) + cv.shape[2:])
-            # logical blocks mapped to the trash block 0 are invalid,
-            # whatever block 0's pos plane holds
-            gp = torch.where((tl == 0)[:, :, None], -1,
-                             cp[tl]).reshape(b, nb * cache_len)
             out = full_attention(q, gk, gv, q_pos=positions, kv_pos=gp,
                                  causal=causal, window=window)
-        return dense(p["wo"], out.reshape(b, s, h * dh), cfg), cache
+        return project(out), cache
 
-    idx = int(idx)
-    if idx + s > cache_len:
-        raise NotImplementedError(
-            f"writing {s} tokens at {idx} wraps a {cache_len}-row ring "
-            f"cache; ring wrap-around is not ported yet")
-    ck[:, idx:idx + s] = kd
-    cv[:, idx:idx + s] = vd
-    cp[:, idx:idx + s] = new_pos[None, :]
+    if per_row:
+        # per-slot decode over contiguous rows: row r writes its token at
+        # ring position idx[r] % cache_len
+        if s != 1 or not per_slot:
+            raise ValueError("per-slot decode feeds one token per row into "
+                             "a per-slot cache")
+        rows = torch.arange(b, device=x.device)
+        slot = torch.remainder(idx, cache_len).long()
+        ck[rows, slot] = kd[:, 0]
+        cv[rows, slot] = vd[:, 0]
+        cp[rows, slot] = new_pos[:, 0]
+    elif s >= cache_len:
+        # keep the ring invariant slot == pos % cache_len, so later
+        # one-token writes overwrite the oldest entry
+        shift = (int(idx) + s - cache_len) % cache_len  # new_pos[-cache_len]
+        ck.copy_(torch.roll(kd[:, -cache_len:], shift, dims=1))
+        cv.copy_(torch.roll(vd[:, -cache_len:], shift, dims=1))
+        cp.copy_(torch.roll(new_pos[-cache_len:], shift).expand(cp.shape))
+    else:
+        # one lockstep token at its ring position, or S tokens from idx;
+        # the start clamps to [0, cache_len - S] as the reference's
+        # dynamic_update_slice does (engines never ask for a wrap here)
+        lo = int(idx) % cache_len if s == 1 else min(max(int(idx), 0),
+                                                     cache_len - s)
+        ck[:, lo:lo + s] = kd
+        cv[:, lo:lo + s] = vd
+        cp[..., lo:lo + s] = new_pos
     if s == 1:
         out = full_attention(q, ck, cv, q_pos=positions, kv_pos=cp,
                              causal=causal, window=window)
     elif attend_cache and s < cache_len:
-        # suffix prefill: rows [0, idx) hold a cached prefix, and the
-        # suffix attends over the whole updated cache
+        # suffix or chunk prefill: rows [0, idx) hold committed K/V, and
+        # the S tokens attend over the whole updated cache
         out = chunked_attention(q, ck, cv, q_pos=positions, kv_pos=cp,
                                 causal=causal, window=window,
                                 chunk=cfg.attn_chunk)
     else:
-        # whole-prompt prefill attends over its own K/V
+        # whole-prompt prefill attends over its own K/V (a ring shorter
+        # than the prompt keeps only the tail)
         out = chunked_attention(q, k, v, q_pos=positions, kv_pos=positions,
                                 causal=causal, window=window,
                                 chunk=cfg.attn_chunk)
-    return dense(p["wo"], out.reshape(b, s, h * dh), cfg), cache
+    return project(out), cache

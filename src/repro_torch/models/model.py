@@ -1,7 +1,7 @@
 """Top-level model for the dense family (PyTorch port of
 ``repro.models.model``): embedding -> layer stack -> norm -> unembed, with
-the serving entry points ``prefill_bucketed``, ``prefill_chunk`` and
-``decode_step``.
+the serving entry points ``prefill``, ``prefill_bucketed``,
+``prefill_chunk``, ``decode_step``, ``mixed_step`` and ``verify_step``.
 
 The reference scans its stacked layer axis; here the layers are a Python
 loop over that axis, each layer reading its slice (a view) of the stacked
@@ -58,14 +58,17 @@ class Model:
     # -- forward ------------------------------------------------------------
 
     def apply(self, params, batch: Dict[str, torch.Tensor], *, cache=None,
-              cache_index=None, last_index=None,
+              cache_index=None, last_only: bool = False, last_index=None,
               block_tables=None, attend_cache: bool = False,
-              paged: bool = False):
+              paged: bool = False, q_lens=None):
         """Forward pass over tokens (B, S). Returns (logits (B, S, V) — or
-        (B, 1, V) with ``last_index`` (scalar or (B,)) — cache, aux).
+        (B, 1, V) with ``last_index`` (scalar or (B,)) or ``last_only`` —
+        cache, aux).
 
         ``cache_index``: None (no cache), an int (write offset shared by
-        the batch) or a (B,) tensor (per-slot decode positions).
+        the batch) or a (B,) tensor (per-slot start positions). ``q_lens``
+        ((B,), with ``block_tables``) selects the fused mixed path: row r
+        carries ``q_lens[r]`` real tokens.
         """
         cfg = self.cfg
         x = embed_apply(params["embed"], batch["tokens"], cfg)
@@ -87,17 +90,27 @@ class Model:
                     unit_params[key], x, cfg, kind, positions=positions,
                     cache=unit_cache[key] if unit_cache is not None else None,
                     cache_index=cache_index, block_tables=block_tables,
-                    attend_cache=attend_cache, paged=paged)
+                    attend_cache=attend_cache, paged=paged, q_lens=q_lens)
         if last_index is not None:
             b = x.shape[0]
             idx = torch.as_tensor(last_index, device=x.device).long()
             x = x[torch.arange(b, device=x.device), idx.expand(b)][:, None]
+        elif last_only:
+            x = x[:, -1:]
         x = norm_apply(params["final_norm"], x, cfg)
         logits = unembed_apply(params["embed"], x, cfg)
         return logits, cache, torch.zeros((), dtype=torch.float32,
                                           device=x.device)
 
     # -- serving ------------------------------------------------------------
+
+    def prefill(self, params, batch, cache):
+        """Process a whole prompt, fill the cache from row 0 (a prompt of
+        at least the cache's length keeps its tail in ring order), and
+        return the last token's logits."""
+        logits, cache, _ = self.apply(params, batch, cache=cache,
+                                      cache_index=0, last_only=True)
+        return logits[:, -1], cache
 
     def prefill_bucketed(self, params, batch, cache, last_index):
         """Whole-prompt prefill over bucket-padded tokens, writing the
@@ -128,3 +141,33 @@ class Model:
                                       cache_index=index,
                                       block_tables=block_tables, paged=paged)
         return logits[:, -1], cache
+
+    def mixed_step(self, params, batch, cache, start, q_lens, last_index,
+                   block_tables, *, paged: bool = False):
+        """One fused chunk+decode step over the block arena: row r of
+        ``batch['tokens']`` (B, S) carries ``q_lens[r]`` real tokens from
+        absolute position ``start[r]`` (decode rows 1, chunk rows up to S,
+        idle rows 0). Each row's valid K/V is committed through its block
+        table inside this call; returns each row's ``last_index`` logits."""
+        logits, cache, _ = self.apply(
+            params, batch, cache=cache, cache_index=_ints(start, batch),
+            last_index=last_index, block_tables=block_tables, paged=paged,
+            q_lens=_ints(q_lens, batch))
+        return logits[:, -1], cache
+
+    def verify_step(self, params, batch, cache, start, q_lens, block_tables,
+                    *, paged: bool = False):
+        """Speculative verify: the routing of :meth:`mixed_step`, but the
+        logits of every position come back, (B, S, V): position j of row r
+        is the next-token distribution after its first j + 1 fed tokens."""
+        logits, cache, _ = self.apply(
+            params, batch, cache=cache, cache_index=_ints(start, batch),
+            block_tables=block_tables, paged=paged,
+            q_lens=_ints(q_lens, batch))
+        return logits, cache
+
+
+def _ints(a, batch) -> torch.Tensor:
+    """(B,) int32 on the tokens' device."""
+    return torch.as_tensor(a, dtype=torch.int32,
+                           device=batch["tokens"].device)

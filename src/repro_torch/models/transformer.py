@@ -47,14 +47,16 @@ def build_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
 def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 positions: torch.Tensor, cache: Optional[dict] = None,
                 cache_index=None, block_tables: Optional[torch.Tensor] = None,
-                attend_cache: bool = False, paged: bool = False):
+                attend_cache: bool = False, paged: bool = False,
+                q_lens: Optional[torch.Tensor] = None):
     """Returns (x, cache)."""
     if kind != "attn":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     h, cache = attn_mod.attention_apply(
         p["attn"], norm_apply(p["ln1"], x, cfg), cfg, positions=positions,
         causal=cfg.causal, window=None, cache=cache, cache_index=cache_index,
-        block_tables=block_tables, attend_cache=attend_cache, paged=paged)
+        block_tables=block_tables, attend_cache=attend_cache, paged=paged,
+        q_lens=q_lens)
     x = x + h
     x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg)
     return x, cache

@@ -5,9 +5,8 @@ The fields keep the reference's names and meaning, with these
 differences: ``cache_dtype`` is a torch dtype; there is no ``paged_impl``
 (the device of the tensors picks the kernel or its plain version); and
 ``enable_metrics`` defaults to False because metrics and tracing are not
-ported yet. The engine raises ``NotImplementedError`` for the options whose
-paths are not ported (``prefill_chunk``, ``fused_step``, ``spec_decode``,
-``prefix_cache=False``, ``enable_metrics=True``, temperature > 0).
+ported yet: the engine raises ``NotImplementedError`` for
+``enable_metrics=True``, and serves every other option.
 """
 from __future__ import annotations
 
@@ -102,8 +101,10 @@ class SamplingParams:
     """Per-request sampling contract for ``submit(prompt, params)``.
 
     max_tokens — tokens to generate (0 allowed: prefill-only request);
-    temperature — 0 greedy; > 0 is not ported yet (the engine raises);
-    seed / key — reproducibility handles, mutually exclusive.
+    temperature — 0 greedy; > 0 samples, token-exact with the reference's
+      seeded ``jax.random`` draws;
+    seed / key — reproducibility handles, mutually exclusive (``key`` is
+      the reference's key data: two uint32 words).
     """
 
     max_tokens: int

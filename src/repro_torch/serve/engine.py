@@ -1,25 +1,30 @@
-"""Continuous-batching serve engine over SWIS-packed weights (PyTorch port
-of ``repro.serve.engine.ContinuousBatchingEngine``, block mode).
+"""Serve engines over SWIS-packed weights (PyTorch port of
+``repro.serve.engine``).
 
-A :class:`~repro_torch.serve.scheduler.RequestScheduler` admits requests
-into free slots; the block-mode :class:`~repro_torch.serve.kv_cache.
-SlotKVCache` and the :class:`~repro_torch.serve.prefix_cache.
-RadixPrefixCache` let an admitted request reference the cached blocks of
-its longest block-aligned prompt prefix and prefill only the rest. Each
-``step()`` admits, prefills the admitted requests (bucketed whole-prompt
-prefill, or suffix prefill past a cached prefix), and runs one batched
-decode step over every slot, through the paged attention kernel with
-``use_paged_kernel=True``. With ``packed=True`` every GEMM reads SWIS
-bit-planes through the SWIS matmul kernel.
+Two engines share the model, the packing path and the seeded sampler
+:func:`sample_step`:
 
-Decoding is greedy. Seeded sampling at temperature > 0 must reproduce the
-reference's ``jax.random`` (threefry) draws to be token-exact and is not
-ported yet; neither are chunked prefill, the fused mixed step, speculative
-decode, the contiguous cache mode, metrics and tracing. Each raises
-``NotImplementedError`` naming its ROADMAP item.
+* :class:`ContinuousBatchingEngine` — the serving hot path. A
+  :class:`~repro_torch.serve.scheduler.RequestScheduler` admits requests
+  into free slots of a :class:`~repro_torch.serve.kv_cache.SlotKVCache`;
+  admitted requests prefill (whole, suffix past a cached prefix, or chunk
+  by chunk) while the other slots keep decoding, one batched step at a
+  time. It serves every option of the reference engine: the block arena
+  with the radix prefix cache or contiguous rows, chunked prefill, the
+  fused mixed step, self-speculative decode and seeded sampling. Metrics
+  and tracing (``enable_metrics``) are not ported yet and raise
+  ``NotImplementedError``.
+* :class:`DecodeEngine` — the static-batch engine (one lockstep batch, a
+  fresh contiguous cache per call), kept as the parity oracle.
+
+With ``packed=True`` every GEMM reads SWIS bit-planes through the SWIS
+matmul kernel; with ``use_paged_kernel=True`` every launch over the block
+arena (decode, mixed, draft, verify) runs the paged attention kernel.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -30,23 +35,44 @@ from repro_torch.configs.base import ArchConfig, QuantPolicy
 from repro_torch.core.swis import QuantConfig
 from repro_torch.models import params as pp
 from repro_torch.models.model import Model
+from repro_torch.serve import prng
 from repro_torch.serve.config import EngineConfig, SamplingParams
 from repro_torch.serve.kv_cache import SlotKVCache
 from repro_torch.serve.prefix_cache import BlockPool, RadixPrefixCache
-from repro_torch.serve.quantized import pack_tree
+from repro_torch.serve.quantized import pack_tree, total_slices
 from repro_torch.serve.scheduler import Finished, RequestScheduler
 
 _NOT_PORTED = {
-    "prefill_chunk": "chunked prefill (ROADMAP A6, port queue item 2)",
-    "fused_step": "the fused mixed step (ROADMAP A6, port queue item 3)",
-    "spec_decode": "speculative decode (ROADMAP A6, port queue item 4)",
     "enable_metrics": "metrics and tracing (ROADMAP A7, port queue item 6)",
 }
 
 
-def sample_greedy(logits: torch.Tensor) -> np.ndarray:
-    """Greedy next tokens (first maximum on ties, as ``jnp.argmax``)."""
-    return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+def sample_step(logits: torch.Tensor, keys, steps, temps) -> torch.Tensor:
+    """Seeded per-row sampling, token-exact with the reference's.
+
+    Row r draws ``argmax(logits[r] / max(temps[r], 1e-6) + gumbel)`` with
+    the gumbel noise of key ``fold_in(keys[r], steps[r])`` — the
+    reference's ``categorical`` — or the greedy ``argmax(logits[r])`` when
+    ``temps[r] <= 0``. ``keys`` (B, 2) key data, ``steps`` (B,) ints,
+    ``temps`` (B,) floats; returns (B,) int32 on the logits' device.
+    """
+    greedy = logits.argmax(dim=-1).to(torch.int32)
+    temps = torch.as_tensor(np.asarray(temps, np.float32))
+    if not bool((temps > 0).any()):
+        return greedy  # a greedy batch draws no noise: same tokens
+    dev = logits.device
+    keys = torch.as_tensor(keys).to(dev)
+    steps = torch.as_tensor(np.asarray(steps, np.int64)).to(dev)
+    temps = temps.to(dev)
+    noise = prng.gumbel(prng.fold_in(keys, steps), logits.shape[-1])
+    scaled = logits.float() / torch.clamp_min(temps, 1e-6)[:, None]
+    sampled = (noise + scaled).argmax(dim=-1).to(torch.int32)
+    return torch.where(temps <= 0, greedy, sampled)
+
+
+def _sample(logits, keys: List[torch.Tensor], steps, temps) -> np.ndarray:
+    return sample_step(logits, torch.stack(list(keys)), steps,
+                       temps).cpu().numpy()
 
 
 def _maybe_pack(cfg: ArchConfig, params, packed: bool,
@@ -65,14 +91,26 @@ class ContinuousBatchingEngine:
     """Step-driven serve engine: requests join mid-flight.
 
     ``ContinuousBatchingEngine(cfg, params, config=EngineConfig(...),
-    device="cuda")``; ``submit(prompt_1d, SamplingParams(max_tokens))
-    -> rid``; ``step()`` runs one scheduler round and returns the requests
-    that finished; ``drain()`` steps until idle. ``params`` are moved to
-    ``device``; a packed tree may be passed with ``packed=True`` (packing a
-    packed tree is a no-op).
+    device="cuda")``; ``submit(prompt_1d, SamplingParams(max_tokens,
+    temperature, seed | key)) -> rid``; ``step()`` runs one scheduler round
+    and returns the requests that finished; ``drain()`` steps until idle.
+    ``params`` are moved to ``device``; a packed tree may be passed with
+    ``packed=True`` (packing a packed tree is a no-op).
 
-    ``n_prefill_calls`` and ``n_decode_steps`` count the model calls made,
-    so a caller can check how many kernel launches a run should have made.
+    Options, as in the reference engine: ``prefix_cache`` (block arena and
+    radix prefix cache; False: contiguous rows), ``prefill_chunk`` (at most
+    one chunk of prefill per step, round-robin over the admitted groups,
+    ``prefill_backlog`` groups in flight), ``fused_step`` (the chunk and the
+    decode batch in one ``mixed_step`` launch), ``spec_decode`` (``spec_k``
+    drafts from the model cut to ``draft_slices`` bit-planes, one verify
+    launch, token-exact against plain decode).
+
+    Counters of the model calls made, so a caller can check how many
+    kernel launches a run should have made: ``n_prefill_calls`` (whole or
+    suffix prefill), ``n_chunk_calls`` (separate chunk prefill),
+    ``n_mixed_steps``, ``n_decode_steps``, ``n_draft_steps`` and
+    ``n_verify_steps``; and ``spec_proposed`` / ``spec_accepted`` draft
+    tokens.
     """
 
     def __init__(self, cfg: ArchConfig, params: Any,
@@ -84,10 +122,6 @@ class ContinuousBatchingEngine:
         for name, what in _NOT_PORTED.items():
             if getattr(config, name) not in (None, False):
                 raise NotImplementedError(f"{name}: {what} is not ported yet")
-        if not config.prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache=False: the contiguous cache mode (ROADMAP A6, "
-                "port queue item 5) is not ported yet")
         self.config = config
         self.device = _device.resolve(device)
         params = pp.tree_map(lambda a: a.to(self.device), params)
@@ -96,49 +130,106 @@ class ContinuousBatchingEngine:
         self.max_len = config.max_len
         self.n_slots = config.n_slots
         self.model = Model(self.cfg)
-        if not SlotKVCache.supports_blocks(self.model, self.max_len):
-            raise NotImplementedError(
-                "this family's cache is not block-compatible; the contiguous "
-                "cache mode is not ported yet")
-        self.bucket_prompts = config.bucket_prompts
-        bps = -(-self.max_len // config.block_size)
-        extra = (2 * bps if config.n_cache_blocks is None
-                 else config.n_cache_blocks)
-        n_blocks = self.n_slots * bps + extra + 1  # +1: trash block
-        self.cache = SlotKVCache(self.model, self.n_slots, self.max_len,
-                                 config.cache_dtype,
-                                 block_size=config.block_size,
-                                 n_blocks=n_blocks, device=self.device)
+        uniform = SlotKVCache.supports_blocks(self.model, self.max_len)
+        # bucket padding is sound only for pure attention caches, whose
+        # pad writes are masked out by pos
+        self.bucket_prompts = config.bucket_prompts and uniform
+        self.block_mode = config.prefix_cache and uniform
+        if self.block_mode:
+            bps = -(-self.max_len // config.block_size)
+            extra = (2 * bps if config.n_cache_blocks is None
+                     else config.n_cache_blocks)
+            n_blocks = self.n_slots * bps + extra + 1  # +1: trash block
+            self.cache = SlotKVCache(self.model, self.n_slots, self.max_len,
+                                     config.cache_dtype,
+                                     block_size=config.block_size,
+                                     n_blocks=n_blocks, device=self.device)
+        else:
+            self.cache = SlotKVCache(self.model, self.n_slots, self.max_len,
+                                     config.cache_dtype, block_size=None,
+                                     device=self.device)
+        for name, on in (("prefill_chunk", config.prefill_chunk is not None),
+                         ("use_paged_kernel", config.use_paged_kernel),
+                         ("spec_decode", config.spec_decode)):
+            if on and not self.block_mode:
+                raise ValueError(f"{name} requires the block-mode prefix "
+                                 f"cache (uniform attention caches with "
+                                 f"prefix_cache=True)")
+        chunk = config.prefill_chunk
+        if chunk is not None:
+            # chunk boundaries are block-aligned so each chunk commits
+            # whole blocks into the arena as it lands
+            bs = self.cache.block_size
+            chunk = max(bs, -(-chunk // bs) * bs)
+        self.prefill_chunk = chunk
+        self.prefill_backlog = config.prefill_backlog
+        self.fused_step = config.fused_step
         self.paged = config.use_paged_kernel
+        # self-speculative decode: the draft model is the target model
+        # under a policy whose keep_slices cuts every packed GEMM to the
+        # top draft_slices bit-planes (None: a full-precision draft)
+        self.spec_decode = config.spec_decode
+        self.spec_k = config.spec_k
+        self.draft_model = self.model
+        if config.spec_decode and config.draft_slices is not None:
+            total = total_slices(self.params)
+            if not 1 <= config.draft_slices <= total:
+                raise ValueError(
+                    f"draft_slices={config.draft_slices} out of range: the "
+                    f"packed weights carry {total} bit-slices (1 <= "
+                    f"draft_slices <= {total})")
+            self.draft_model = Model(self.cfg.replace(quant=dataclasses.replace(
+                self.cfg.quant, keep_slices=config.draft_slices)))
+        self._dummy_key = prng.key(0)
+        self.scheduler = None
         self.reset()
 
     # -- request API ----------------------------------------------------
 
     def submit(self, prompt, params: SamplingParams) -> int:
-        """Enqueue a request; returns its id."""
+        """Enqueue a request; returns its id. ``params.seed`` (or an
+        explicit ``params.key``, two uint32 words) makes its sampling
+        reproducible; otherwise it gets the distinct key
+        ``fold_in(key(0), rid)``."""
         if not isinstance(params, SamplingParams):
             raise TypeError(f"submit() expects SamplingParams, got "
                             f"{type(params).__name__}")
-        if params.temperature > 0:
-            raise NotImplementedError(
-                "temperature > 0 needs a threefry2x32 sampler matching the "
-                "reference's jax.random draws (port queue item 1); only "
-                "greedy decoding is ported")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size + params.max_tokens > self.max_len:
             raise ValueError(
                 f"prompt ({prompt.size}) + max_tokens ({params.max_tokens}) "
                 f"exceeds max_len ({self.max_len})")
-        return self.scheduler.submit(prompt, params.max_tokens, 0.0, None)
+        if params.key is not None:
+            key = prng.as_key(params.key)
+        elif params.seed is not None:
+            key = prng.key(params.seed)
+        else:
+            key = prng.fold_in(self._dummy_key, self.scheduler.next_rid())
+        return self.scheduler.submit(prompt, params.max_tokens,
+                                     params.temperature, key)
 
     def step(self) -> List[Finished]:
-        """One scheduler round: admit queued requests and prefill them,
-        then one batched decode step over the DECODING slots."""
-        admitted = self.scheduler.admit()
-        if admitted:
-            self._run_prefill(self._assign_blocks(admitted))
-        if self.scheduler.needs_decode():
-            self._decode_once()
+        """One scheduler round: admit queued requests (unless the chunk
+        backlog is full) and prefill them or stage their chunks, run at
+        most one chunk of prefill, then one batched decode step over the
+        DECODING slots. With ``fused_step`` the chunk and the decode batch
+        ride one ``mixed_step`` launch."""
+        if len(self._prefill_groups) < self.prefill_backlog:
+            admitted = self.scheduler.admit()
+            if admitted:
+                self._prefill_admitted(admitted)
+        decoded = False
+        if self._prefill_groups:
+            if self._prefill_groups[0].get("fused"):
+                self._mixed_once()  # the chunk AND the decode batch
+                decoded = True
+            else:
+                self._advance_chunk()
+        if not decoded and self.scheduler.needs_decode():
+            if self.spec_decode:
+                self._spec_once()
+            else:
+                self._decode_once()
         return self.scheduler.pop_finished()
 
     def drain(self) -> Dict[int, np.ndarray]:
@@ -150,48 +241,85 @@ class ContinuousBatchingEngine:
         return out
 
     def generate(self, prompt: np.ndarray, n_tokens: int,
-                 temperature: float = 0.0) -> np.ndarray:
-        """Static-batch wrapper: prompt (B, S0) -> (B, S0 + n_tokens)."""
+                 temperature: float = 0.0, seed: int = 0) -> np.ndarray:
+        """Static-batch wrapper: prompt (B, S0) -> (B, S0 + n_tokens). Row r
+        samples with key fold_in(key(seed), r), as :class:`DecodeEngine`."""
         if self.scheduler.pending():
             raise RuntimeError("generate() requires an idle engine")
-        rids = [self.submit(row, SamplingParams(max_tokens=n_tokens,
-                                                temperature=temperature))
-                for row in np.asarray(prompt)]
+        rng = prng.key(seed)
+        rids = [self.submit(row, SamplingParams(
+                    max_tokens=n_tokens, temperature=temperature,
+                    key=prng.fold_in(rng, r)))
+                for r, row in enumerate(np.asarray(prompt))]
         out = self.drain()
         return np.stack([out[rid] for rid in rids])
 
     def reset(self) -> None:
         """Return an idle engine to its post-construction state: empty
         queue, empty prefix cache, zeroed counters. Stale arena K/V stays:
-        admission scrubs the blocks it takes over before they are read."""
-        if getattr(self, "scheduler", None) is not None and \
-                self.scheduler.pending():
+        every allocation path scrubs the blocks it takes over (the whole
+        scattered working tree unchunked, ``invalidate_blocks`` chunked)
+        before their positions can enter a mask."""
+        if self.scheduler is not None and self.scheduler.pending():
             raise RuntimeError("reset() requires an idle engine")
         self.scheduler = RequestScheduler(self.n_slots)
-        self.prefix_cache = RadixPrefixCache(
-            BlockPool(self.cache.n_blocks, self.cache.block_size))
-        self.scheduler.on_release = self._release_slot
-        self.scheduler.admission_priority = self._hit_score
-        self._slot_meta: Dict[int, dict] = {}
-        for slot in range(self.n_slots):
-            self.cache.clear_table(slot)
+        self._prefill_groups: collections.deque = collections.deque()
+        self.prefix_cache: Optional[RadixPrefixCache] = None
+        if self.block_mode:
+            self.prefix_cache = RadixPrefixCache(
+                BlockPool(self.cache.n_blocks, self.cache.block_size))
+            self.scheduler.on_release = self._release_slot
+            self.scheduler.admission_priority = self._hit_score
+            self._slot_meta: Dict[int, dict] = {}
+            for slot in range(self.n_slots):
+                self.cache.clear_table(slot)
         self._stat_prefill_tokens = 0
         self._stat_saved_tokens = 0
+        self._stat_chunk_steps = 0
         self.n_prefill_calls = 0
+        self.n_chunk_calls = 0
+        self.n_mixed_steps = 0
         self.n_decode_steps = 0
+        self.n_draft_steps = 0
+        self.n_verify_steps = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+
+    def model_calls(self) -> int:
+        """Every model call so far (each runs every GEMM once)."""
+        return (self.n_prefill_calls + self.n_chunk_calls + self.n_mixed_steps
+                + self.n_decode_steps + self.n_draft_steps
+                + self.n_verify_steps)
+
+    def arena_calls(self) -> int:
+        """Model calls whose attention reads the block arena through the
+        tables (the paged kernel's calls with ``use_paged_kernel``)."""
+        if not self.block_mode:
+            return 0
+        return (self.n_mixed_steps + self.n_decode_steps + self.n_draft_steps
+                + self.n_verify_steps)
 
     def prefix_stats(self) -> Dict[str, Any]:
         """Prefix-cache health: hit rate, tokens saved vs computed, block
         commits and evictions, arena occupancy."""
+        if self.prefix_cache is None:
+            return {"enabled": False,
+                    "prefill_tokens": self._stat_prefill_tokens,
+                    "saved_tokens": 0, "prefill_chunk": None,
+                    "prefill_chunk_steps": 0}
         out = self.prefix_cache.stats()
         out.update(enabled=True, block_size=self.cache.block_size,
                    prefill_tokens=self._stat_prefill_tokens,
                    saved_tokens=self._stat_saved_tokens,
-                   hit_tokens=self._stat_saved_tokens, prefill_chunk=None,
-                   prefill_chunk_steps=0)
+                   hit_tokens=self._stat_saved_tokens,
+                   prefill_chunk=self.prefill_chunk,
+                   prefill_chunk_steps=self._stat_chunk_steps)
         return out
 
     # -- internals ------------------------------------------------------
+
+    def _dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device)
 
     def _hit_score(self, req) -> int:
         """Cache-aware admission: expected cached-prefix tokens."""
@@ -204,7 +332,8 @@ class ContinuousBatchingEngine:
         clamped to the cache capacity past the prefix."""
         if not self.bucket_prompts:
             return s
-        cap = self.cache.eff_len - prefix_len
+        cap = (self.cache.eff_len if self.block_mode
+               else self.max_len) - prefix_len
         return min(max(8, 1 << max(s - 1, 0).bit_length()), cap)
 
     def _assign_blocks(self, admitted):
@@ -234,7 +363,11 @@ class ContinuousBatchingEngine:
                 continue
             self.prefix_cache.count_lookup(matched)
             pool.incref(ids)
-            self.cache.set_table(slot, matched + ids)
+            if self.prefill_chunk is None:
+                self.cache.set_table(slot, matched + ids)
+            # chunked: the table stays on the trash block until the last
+            # chunk lands, so a PREFILLING slot's dummy decode row cannot
+            # write into (possibly shared) live blocks
             self._slot_meta[slot] = {"matched": matched, "owned": ids,
                                      "need": need,
                                      "prefix_blocks": len(matched)}
@@ -261,12 +394,21 @@ class ContinuousBatchingEngine:
         self.prefix_cache.release(meta["matched"] + meta["owned"])
         self.cache.clear_table(slot)
 
+    def _prefill_admitted(self, admitted) -> None:
+        if self.block_mode:
+            admitted = self._assign_blocks(admitted)
+            if self.prefill_chunk is not None:
+                self._stage_chunked(admitted)
+                return
+        self._run_prefill(admitted)
+
     def _run_prefill(self, admitted) -> None:
         # one batched prefill per (prefix length, bucketed suffix length)
         groups: Dict[Any, list] = {}
         bs = self.cache.block_size
         for slot, st in admitted:
-            p_len = self._slot_meta[slot]["prefix_blocks"] * bs
+            p_len = (self._slot_meta[slot]["prefix_blocks"] * bs
+                     if self.block_mode else 0)
             s_real = len(st.req.prompt) - p_len
             groups.setdefault((p_len, self._bucket(s_real, p_len)),
                               []).append((slot, st))
@@ -278,30 +420,325 @@ class ContinuousBatchingEngine:
                 sfx = st.req.prompt[p_len:]
                 toks[i, :len(sfx)] = sfx
                 lasts[i] = len(sfx) - 1
-            batch = {"tokens": torch.from_numpy(toks).long().to(self.device)}
-            last_idx = torch.from_numpy(lasts).to(self.device)
+            batch = {"tokens": self._dev(toks).long()}
+            last_idx = self._dev(lasts)
             self._stat_prefill_tokens += int(lasts.sum()) + g
-            meta = [self._slot_meta[slot] for slot, _ in group]
-            cache = self.cache.prefix_tree([m["matched"] for m in meta], p_len)
             self.n_prefill_calls += 1
-            if p_len:
-                logits, cache = self.model.prefill_chunk(
-                    self.params, batch, cache, p_len, last_idx)
+            if self.block_mode:
+                meta = [self._slot_meta[slot] for slot, _ in group]
+                cache = self.cache.prefix_tree([m["matched"] for m in meta],
+                                               p_len)
+                if p_len:
+                    logits, cache = self.model.prefill_chunk(
+                        self.params, batch, cache, p_len, last_idx)
+                else:
+                    logits, cache = self.model.prefill_bucketed(
+                        self.params, batch, cache, last_idx)
+                for i, (slot, st) in enumerate(group):
+                    self.cache.scatter_row(cache, i, meta[i]["owned"],
+                                           meta[i]["prefix_blocks"],
+                                           len(st.req.prompt) - p_len)
             else:
+                cache = self.cache.fresh(g)
                 logits, cache = self.model.prefill_bucketed(
                     self.params, batch, cache, last_idx)
-            for i, (slot, st) in enumerate(group):
-                self.cache.scatter_row(cache, i, meta[i]["owned"],
-                                       meta[i]["prefix_blocks"],
-                                       len(st.req.prompt) - p_len)
-            for (slot, _), tok in zip(group, sample_greedy(logits)):
+                cache = self.cache.mask_pos_tail(
+                    cache, [len(st.req.prompt) for _, st in group])
+                self.cache.write_slots(cache, [slot for slot, _ in group])
+            first = _sample(logits, [st.req.key for _, st in group],
+                            np.zeros(g, np.int32),
+                            [st.req.temperature for _, st in group])
+            for (slot, _), tok in zip(group, first):
                 self.scheduler.record_prefill(slot, tok)
 
+    def _stage_chunked(self, admitted) -> None:
+        """Stage admitted requests as chunk-prefill groups (no model work
+        yet: ``_advance_chunk`` or ``_mixed_once`` runs one chunk per
+        step). Grouped by (prefix length, chunk count, bucketed final-chunk
+        length), so every row of a group advances in lockstep."""
+        chunk = self.prefill_chunk
+        bs = self.cache.block_size
+        groups: Dict[Any, list] = {}
+        for slot, st in admitted:
+            p_len = self._slot_meta[slot]["prefix_blocks"] * bs
+            s_real = len(st.req.prompt) - p_len
+            n_chunks = -(-s_real // chunk)
+            tail = self._bucket(s_real - (n_chunks - 1) * chunk,
+                                p_len + (n_chunks - 1) * chunk)
+            groups.setdefault((p_len, n_chunks, tail), []).append((slot, st))
+        for (p_len, n_chunks, tail), members in groups.items():
+            g = len(members)
+            s_pad = (n_chunks - 1) * chunk + tail
+            toks = np.zeros((g, s_pad), np.int32)
+            lasts = np.empty(g, np.int64)
+            metas = []
+            for i, (slot, st) in enumerate(members):
+                meta = self._slot_meta[slot]
+                metas.append(meta)
+                sfx = st.req.prompt[p_len:]
+                toks[i, :len(sfx)] = sfx
+                lasts[i] = len(sfx) - (n_chunks - 1) * chunk - 1
+            # owned blocks commit chunk by chunk, so their stale positions
+            # are scrubbed up front: the tail not reached yet must never
+            # enter an attention mask
+            self.cache.invalidate_blocks(
+                [b for m in metas for b in m["owned"]])
+            grp = {"members": members, "metas": metas, "toks": toks,
+                   "lasts": lasts, "p_len": p_len, "n_chunks": n_chunks,
+                   "tail": tail, "done": 0, "tree": None}
+            if self.fused_step:
+                # each chunk commits straight into the arena through the
+                # group's own tables inside the mixed launch
+                grp["fused"] = True
+                grp["tables"] = self.cache.group_tables(
+                    [m["matched"] + m["owned"] for m in metas])
+            else:
+                # the working tree holds the committed rows and the padded
+                # suffix, rounded up to a power of two (then whole blocks)
+                need = p_len + s_pad
+                length = -(-(1 << max(need - 1, 0).bit_length()) // bs) * bs
+                length = min(self.cache.eff_len, max(length, bs))
+                grp["tree"] = self.cache.prefix_tree(
+                    [m["matched"] for m in metas], p_len, length=length)
+            self._prefill_groups.append(grp)
+
+    def _finish_group(self, grp, first) -> None:
+        """The group's last chunk has landed: its slots' tables go live and
+        each samples ``first`` as its first token."""
+        for i, (slot, st) in enumerate(grp["members"]):
+            meta = grp["metas"][i]
+            self.cache.set_table(slot, meta["matched"] + meta["owned"])
+            self._stat_prefill_tokens += len(st.req.prompt) - grp["p_len"]
+            self.scheduler.record_prefill(slot, int(first[i]))
+
+    def _advance_chunk(self) -> None:
+        """Run one chunk of prefill for the head group (round-robin across
+        groups): prefill the chunk at the group's committed offset, attend
+        over everything committed so far, and scatter the chunk's blocks
+        into the arena. On the last chunk, sample each row's first token
+        and let its slot's table go live."""
+        grp = self._prefill_groups[0]
+        chunk = self.prefill_chunk
+        bs = self.cache.block_size
+        k = grp["done"]
+        final = k == grp["n_chunks"] - 1
+        s_chunk = grp["tail"] if final else chunk
+        lo = k * chunk
+        g = len(grp["members"])
+        batch = {"tokens": self._dev(grp["toks"][:, lo:lo + s_chunk]).long()}
+        last_idx = self._dev(grp["lasts"] if final
+                             else np.full(g, s_chunk - 1, np.int64))
+        committed = grp["p_len"] + lo
+        self._stat_chunk_steps += 1
+        self.n_chunk_calls += 1
+        if committed == 0:
+            # first chunk of an uncached prompt: it attends over its own
+            # K/V like a whole-prompt prefill
+            logits, tree = self.model.prefill_bucketed(
+                self.params, batch, grp["tree"], last_idx)
+        else:
+            logits, tree = self.model.prefill_chunk(
+                self.params, batch, grp["tree"], committed, last_idx)
+        grp["tree"] = tree
+        grp["done"] = k + 1
+        b0 = lo // bs  # this chunk's first logical block past the prefix
+        for i, (slot, st) in enumerate(grp["members"]):
+            meta = grp["metas"][i]
+            n_valid = min(len(st.req.prompt) - grp["p_len"] - lo, s_chunk)
+            nb = -(-n_valid // bs)
+            self.cache.scatter_row(tree, i, meta["owned"][b0:b0 + nb],
+                                   meta["prefix_blocks"] + b0, n_valid)
+        if not final:
+            # a short group admitted behind a long prefill gets the next step
+            self._prefill_groups.rotate(-1)
+            return
+        self._prefill_groups.popleft()
+        self._finish_group(grp, _sample(
+            logits, [st.req.key for _, st in grp["members"]],
+            np.zeros(g, np.int32),
+            [st.req.temperature for _, st in grp["members"]]))
+
+    def _mixed_once(self) -> None:
+        """The head fused chunk group AND the whole decode batch in one
+        ``mixed_step`` launch. Rows [0, n_slots) are the per-slot decode
+        rows (``q_lens`` 1 for DECODING slots, 0 otherwise); rows
+        [n_slots, n_slots + g) carry the group's chunk through the group's
+        tables. Every row commits its valid K/V inside the launch; invalid
+        tokens go to the trash block."""
+        grp = self._prefill_groups[0]
+        chunk = self.prefill_chunk
+        k = grp["done"]
+        final = k == grp["n_chunks"] - 1
+        s_chunk = grp["tail"] if final else chunk
+        lo = k * chunk
+        g = len(grp["members"])
+        n = self.n_slots
+        toks, idxs, steps, temps, keys = self.scheduler.decode_batch(
+            self._dummy_key)
+        decoding = self.scheduler.decoding_slots()
+        btoks = np.zeros((n + g, s_chunk), np.int32)
+        btoks[:n, 0] = toks
+        btoks[n:] = grp["toks"][:, lo:lo + s_chunk]
+        q_lens = np.zeros(n + g, np.int32)
+        q_lens[decoding] = 1
+        start = np.zeros(n + g, np.int32)
+        start[:n] = idxs
+        start[n:] = grp["p_len"] + lo
+        last_idx = np.zeros(n + g, np.int64)
+        last_idx[n:] = grp["lasts"] if final else s_chunk - 1
+        for i, (_, st) in enumerate(grp["members"]):
+            q_lens[n + i] = min(len(st.req.prompt) - grp["p_len"] - lo,
+                                s_chunk)
+        tables = np.concatenate([self.cache.block_tables, grp["tables"]])
+        self._stat_chunk_steps += 1
+        self.n_mixed_steps += 1
+        logits, self.cache.tree = self.model.mixed_step(
+            self.params, {"tokens": self._dev(btoks).long()}, self.cache.tree,
+            start, q_lens, self._dev(last_idx), self._dev(tables),
+            paged=self.paged)
+        members = [st for _, st in grp["members"]]
+        nxt = _sample(logits, list(keys) + [st.req.key for st in members],
+                      np.concatenate([steps, np.zeros(g, np.int32)]),
+                      np.concatenate([temps, np.asarray(
+                          [st.req.temperature for st in members],
+                          np.float32)]))
+        self.scheduler.record_decode(nxt[:n])
+        grp["done"] = k + 1
+        if not final:
+            self._prefill_groups.rotate(-1)
+            return
+        self._prefill_groups.popleft()
+        self._finish_group(grp, nxt[n:])
+
     def _decode_once(self) -> None:
-        toks, idxs, _, _, _ = self.scheduler.decode_batch(None)
+        toks, idxs, steps, temps, keys = self.scheduler.decode_batch(
+            self._dummy_key)
         self.n_decode_steps += 1
+        tables = self.cache.tables_device() if self.block_mode else None
         logits, self.cache.tree = self.model.decode_step(
-            self.params, torch.from_numpy(toks).long().to(self.device)[:, None],
-            self.cache.tree, torch.from_numpy(idxs).to(self.device),
-            self.cache.tables_device(), paged=self.paged)
-        self.scheduler.record_decode(sample_greedy(logits))
+            self.params, self._dev(toks).long()[:, None], self.cache.tree,
+            self._dev(idxs), tables, paged=self.paged)
+        self.scheduler.record_decode(_sample(logits, keys, steps, temps))
+
+    def _spec_once(self) -> None:
+        """One self-speculative round over the DECODING slots.
+
+        Draft: ``k_max`` one-token launches of the truncated-slice draft
+        model, each sampling with the same (key, step) the verify targets
+        use; a row drafts up to ``min(spec_k, remaining - 1)`` tokens and
+        then sits out with ``q_lens`` 0. Verify: one full-precision
+        ``verify_step`` feeds ``[t0, d1..dk]`` per row, rewriting every
+        draft-fed position; row r accepts drafts while they equal the
+        targets and always emits at least the first target, the token
+        plain decode would have produced.
+        """
+        toks, idxs, steps, temps, keys = self.scheduler.decode_batch(
+            self._dummy_key)
+        decoding = self.scheduler.decoding_slots()
+        n = self.n_slots
+        k_rows = np.zeros(n, np.int32)
+        for s in decoding:
+            st = self.scheduler.slots[s]
+            k_rows[s] = min(self.spec_k, st.req.n_tokens - st.n_gen - 1)
+        k_max = int(k_rows.max(initial=0))
+        if k_max == 0:
+            # every live row is one token from its budget: plain decode
+            self._decode_once()
+            return
+        tables = self.cache.tables_device()
+        zeros = np.zeros(n, np.int64)
+        draft_toks = np.zeros((n, k_max), np.int32)
+        cur = toks
+        for j in range(k_max):
+            self.n_draft_steps += 1
+            logits, self.cache.tree = self.draft_model.mixed_step(
+                self.params, {"tokens": self._dev(cur).long()[:, None]},
+                self.cache.tree, idxs + j, (k_rows > j).astype(np.int32),
+                self._dev(zeros), tables, paged=self.paged)
+            cur = _sample(logits, keys, steps + j, temps)
+            draft_toks[:, j] = cur
+        s_v = k_max + 1
+        btoks = np.zeros((n, s_v), np.int32)
+        btoks[:, 0] = toks
+        btoks[:, 1:] = draft_toks
+        q_lens = np.zeros(n, np.int32)
+        q_lens[decoding] = k_rows[decoding] + 1
+        self.n_verify_steps += 1
+        logits, self.cache.tree = self.model.verify_step(
+            self.params, {"tokens": self._dev(btoks).long()}, self.cache.tree,
+            idxs, q_lens, tables, paged=self.paged)
+        # entry (r, j) draws with (keys[r], steps[r] + j): exactly the
+        # (key, step) plain decode would use for that token
+        targets = _sample(
+            logits.reshape(n * s_v, -1), [k for k in keys for _ in range(s_v)],
+            (steps[:, None] + np.arange(s_v, dtype=np.int32)[None]).reshape(-1),
+            np.repeat(temps, s_v)).reshape(n, s_v)
+        accepted: Dict[int, np.ndarray] = {}
+        for s in decoding:
+            a = 0
+            while a < k_rows[s] and draft_toks[s, a] == targets[s, a]:
+                a += 1
+            accepted[s] = targets[s, :a + 1]
+        self.spec_proposed += int(k_rows.sum())
+        self.spec_accepted += sum(len(v) - 1 for v in accepted.values())
+        self.scheduler.record_spec(accepted)
+
+
+@dataclasses.dataclass
+class DecodeEngine:
+    """Static-batch decode: prefill plus lockstep decode over a contiguous
+    ring cache, a fresh cache per ``generate`` call. The parity oracle the
+    continuous engine is held against; runs on ``device`` (the card unless
+    the caller asks for the CPU)."""
+
+    cfg: ArchConfig
+    params: Any
+    max_len: int = 256
+    batch: int = 1
+    packed: bool = False
+    quant_cfg: Optional[QuantConfig] = None
+    cache_dtype: Any = torch.float32
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        self.device = _device.resolve(self.device)
+        params = pp.tree_map(lambda a: a.to(self.device), self.params)
+        self.cfg, self.params, self.pack_stats = _maybe_pack(
+            self.cfg, params, self.packed, self.quant_cfg)
+        self.model = Model(self.cfg)
+
+    def new_cache(self):
+        tree = self.model.build_cache(self.batch, self.max_len,
+                                      self.cache_dtype)
+        return pp.init_params(tree, None, device=self.device)
+
+    def generate(self, prompt: np.ndarray, n_tokens: int,
+                 temperature: float = 0.0, seed: int = 0) -> np.ndarray:
+        """prompt: (B, S0) int32. Returns (B, S0 + n_tokens)."""
+        prompt = np.asarray(prompt, np.int32)
+        b, s0 = prompt.shape
+        if b != self.batch or s0 + n_tokens > self.max_len:
+            raise ValueError(f"prompt {prompt.shape} + {n_tokens} tokens does "
+                             f"not fit batch {self.batch}, max_len "
+                             f"{self.max_len}")
+        cache = self.new_cache()
+        batch = {"tokens": torch.as_tensor(prompt).long().to(self.device)}
+        logits, cache = self.model.prefill(self.params, batch, cache)
+        keys = prng.fold_in(prng.key(seed).expand(b, 2), torch.arange(b))
+        temps = np.full(b, temperature, np.float32)
+        out = [prompt]
+        tok = self._sample(logits, keys, temps, 0)
+        for i in range(n_tokens):
+            out.append(tok)
+            if i == n_tokens - 1:
+                break
+            logits, cache = self.model.decode_step(
+                self.params, torch.as_tensor(tok).long().to(self.device),
+                cache, s0 + i)
+            tok = self._sample(logits, keys, temps, i + 1)
+        return np.concatenate(out, axis=1)
+
+    @staticmethod
+    def _sample(logits, keys, temps, i) -> np.ndarray:
+        steps = np.full(logits.shape[0], i, np.int32)
+        return sample_step(logits, keys, steps, temps).cpu().numpy()[:, None]

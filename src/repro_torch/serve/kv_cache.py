@@ -1,6 +1,9 @@
-"""Slot KV cache in block mode (PyTorch port of ``repro.serve.kv_cache``).
+"""Slot KV cache for continuous batching (PyTorch port of
+``repro.serve.kv_cache``): a block arena behind block tables, or contiguous
+per-slot rows.
 
-The KV arena is ``n_blocks`` physical blocks of ``block_size`` token
+**Block mode** (the serving default, and what the prefix cache needs): the
+KV arena is ``n_blocks`` physical blocks of ``block_size`` token
 positions: every cache leaf's batch axis is the physical block axis
 (``k``: (layers, n_blocks, block_size, hkv, dh), ``pos``: (layers,
 n_blocks, block_size)). Each slot owns a row of ``block_tables`` mapping
@@ -10,11 +13,24 @@ share a physical block share that KV with no copy (prefix caching). Block 0
 is the trash block: free slots' rows point at it, and a table entry of 0
 means "invalid" to the attention mask.
 
-The reference's contiguous (non-block) mode, used by recurrent and
-window-truncated families, is not ported yet.
+**Contiguous mode** (``block_size=None``): one cache tree whose batch axis
+is the slot axis, each slot a row of ``max_len`` positions; prefill fills a
+fresh tree and :meth:`SlotKVCache.write_slots` copies its rows in.
 
-The arena is updated in place (decode and ``scatter_row`` write into it)
-where the reference's jitted updates donated it.
+Either way each slot has its own position plane, and attention admits only
+entries whose ``pos`` is valid (>= 0).
+
+Speculative decode writes K/V for proposed tokens into a slot's owned
+blocks before it knows which survive, and needs no rollback: rejected
+positions lie beyond every later query position until the next feed
+rewrites them, so the causal mask keeps them unread; the per-row draft
+budget keeps every write inside blocks the slot owns; and blocks are
+committed to the prefix trie only at release, after the verify launch has
+rewritten every fed position at full precision.
+
+The trees are updated in place (decode, ``scatter_row``, ``write_slots``
+and ``invalidate_blocks`` write into them) where the reference's jitted
+updates donated them.
 """
 from __future__ import annotations
 
@@ -31,20 +47,20 @@ def _is_attn_cache(d) -> bool:
 
 
 class SlotKVCache:
-    """Batched per-slot cache with block-table indirection."""
+    """Batched per-slot cache: block-table indirection or contiguous rows."""
 
     def __init__(self, model, n_slots: int, max_len: int,
                  dtype: Any = torch.float32, block_size: Optional[int] = 8,
                  n_blocks: Optional[int] = None, device="cuda"):
-        if block_size is None:
-            raise NotImplementedError(
-                "contiguous (non-block) cache mode is not ported yet")
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len
         self.dtype = dtype
         self.block_size = block_size
         self.device = torch.device(device)
+        if block_size is None:
+            self.tree = self.fresh(n_slots)
+            return
         self.blocks_per_slot = -(-max_len // block_size)
         self.eff_len = self.blocks_per_slot * block_size
         # +1 for the reserved trash block; the default leaves room for two
@@ -72,9 +88,36 @@ class SlotKVCache:
         """A new zero-initialized ``batch``-row cache tree of ``length``
         positions (pos planes all -1). Always a new allocation: prefill
         writes into its working tree in place."""
-        length = length or self.eff_len
+        length = length or (self.eff_len if self.block_size else self.max_len)
         tree = self.model.build_cache(batch, length, self.dtype, per_slot=True)
         return pp.init_params(tree, None, device=self.device)
+
+    # -- contiguous mode ----------------------------------------------------
+
+    def write_slots(self, slot_tree, slots: Sequence[int]) -> None:
+        """Copy the rows of a ``len(slots)``-row tree into rows ``slots`` of
+        the live cache (contiguous mode, after prefilling admitted
+        requests)."""
+        if self.block_size is not None:
+            raise ValueError("write_slots is for the contiguous mode")
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        for name, sub in self.tree["blocks"].items():
+            for leaf, live in sub.items():
+                live[:, idx] = slot_tree["blocks"][name][leaf]
+
+    @staticmethod
+    def mask_pos_tail(slot_tree, valid_lens: Sequence[int]):
+        """Invalidate (-1) each row's pos entries at index >=
+        ``valid_lens[r]``: bucket-padded prefill records positions for its
+        pad tokens too, and they must never enter an attention mask.
+        Updates ``slot_tree`` in place and returns it."""
+        for sub in slot_tree["blocks"].values():
+            pos = sub["pos"]  # (layers, g, length)
+            valid = torch.as_tensor(np.asarray(valid_lens, np.int64),
+                                    device=pos.device)
+            idx = torch.arange(pos.shape[-1], device=pos.device)
+            pos.masked_fill_(~(idx[None, :] < valid[:, None])[None], -1)
+        return slot_tree
 
     # -- block tables -----------------------------------------------------
 
@@ -98,6 +141,31 @@ class SlotKVCache:
     def clear_table(self, slot: int) -> None:
         self.block_tables[slot] = 0
         self._tables_dev = None
+
+    def group_tables(self, block_lists: Sequence[Sequence[int]]) -> np.ndarray:
+        """Block tables for rows that are not live slots: the fused mixed
+        step's chunk rows commit and read through these while their slots'
+        own tables stay on the trash block until the last chunk lands.
+        Rows are padded with the trash block 0."""
+        tables = np.zeros((len(block_lists), self.blocks_per_slot), np.int32)
+        for i, blocks in enumerate(block_lists):
+            if any(b == 0 for b in blocks):
+                raise ValueError(
+                    f"group table maps to reserved trash block 0: {blocks}")
+            tables[i, :len(blocks)] = blocks
+        return tables
+
+    def invalidate_blocks(self, block_ids: Sequence[int]) -> None:
+        """Set the pos plane of physical ``block_ids`` to -1 (K/V stay, masked
+        by pos). Freshly allocated blocks may hold a previous owner's
+        positions; chunked prefill commits a slot's blocks chunk by chunk,
+        so the blocks it has not reached yet are scrubbed up front."""
+        if not len(block_ids):
+            return
+        idx = torch.as_tensor(np.asarray(block_ids, np.int64),
+                              device=self.device)
+        for sub in self.tree["blocks"].values():
+            sub["pos"][:, idx] = -1
 
     # -- prefill working trees ---------------------------------------------
 

@@ -36,7 +36,7 @@ class Request:
     prompt: np.ndarray  # (S0,) int32
     n_tokens: int
     temperature: float
-    key: Any  # sampling key; unused while decoding is greedy-only
+    key: Any  # threefry key data (repro_torch.serve.prng) for seeded sampling
     extra: Optional[Dict[str, np.ndarray]] = None  # e.g. vlm patches
 
 

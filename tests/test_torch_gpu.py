@@ -226,3 +226,85 @@ def test_kernels_repeat_runs_bit_identical(cuda_device):  # noqa: F811
     runs = [pa.paged_attention_decode(q, kv[0], kv[1], pos, tables, q_pos)
             for _ in range(2)]
     assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_paged_kernel_many_query_rows(cuda_device, dtype):  # noqa: F811
+    """Sq*G = 192 and 384 query rows (Sq 64 and 128 over G = 3), past what
+    one block's shared memory could stage at once, in row tiles; q_lens
+    mixes 0, 1 and full as the fused mixed step's decode and chunk rows do.
+    Every row against the plain version at 1e-5, and a repeat run
+    bit-identical."""
+    rng = np.random.default_rng(12)
+    for sq in (64, 128):
+        live = (sq // 8 + 2, 0, 3, sq // 8 + 1)
+        q, kv, pos, tables, q_pos = _arena(rng, b=4, sq=sq, nb=sq // 8 + 4,
+                                           live=live)
+        ql = np.array([sq, 0, 1, sq - 5], np.int32)
+        host = [torch.from_numpy(a) for a in (q, kv, pos, tables, q_pos, ql)]
+        dev = [t.to(cuda_device) for t in host]
+        k, v = dev[1][0].to(dtype), dev[1][1].to(dtype)
+        got = pa.paged_attention_decode(dev[0], k, v, *dev[2:5], q_lens=dev[5])
+        again = pa.paged_attention_decode(dev[0], k, v, *dev[2:5], q_lens=dev[5])
+        assert torch.equal(got, again)
+        want = pa.paged_attention_decode(
+            host[0], host[1][0].to(dtype), host[1][1].to(dtype), *host[2:5],
+            q_lens=host[5])
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_sampler_bits_on_card_equal_cpu(cuda_device):  # noqa: F811
+    """The threefry draws are integer arithmetic: on the card they give the
+    CPU's bits and uniforms exactly, and the seeded sampler the same
+    tokens."""
+    from repro_torch.serve import prng, sample_step
+
+    keys = torch.stack([prng.fold_in(prng.key(s), s * 7 + 1)
+                        for s in (0, 1, 12345, -3)])
+    for n in (1, 777, 49152):
+        cpu = prng.random_bits(keys, n)
+        assert torch.equal(prng.random_bits(keys.to(cuda_device), n).cpu(), cpu)
+        assert torch.equal(prng.uniform(keys.to(cuda_device), n).cpu(),
+                           prng.uniform(keys, n))
+    logits = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 4, (4, 4096)).astype(np.float32))
+    temps = np.array([0.8, 0.0, 1.5, 0.8], np.float32)
+    for step in range(8):
+        steps = np.full(4, step, np.int32)
+        got = sample_step(logits.to(cuda_device), keys, steps, temps).cpu()
+        assert torch.equal(got, sample_step(logits, keys, steps, temps))
+
+
+def test_engine_paths_on_card_match_cpu_path(cuda_device):  # noqa: F811
+    """Chunked prefill, the fused mixed step, speculative decode, seeded
+    sampling and the contiguous mode give the CPU path's tokens on the
+    card, with one paged launch per layer per arena call and one SWIS launch
+    per GEMM per model call."""
+    cfg = configs.get_smoke("smollm-135m").replace(
+        compute_dtype="float32", d_model=64, n_heads=4, n_kv_heads=2, d_ff=128)
+    params = pp.init_params(Model(cfg).build(), torch.Generator().manual_seed(2),
+                            device="cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (37, 9, 21, 4)]
+    base = dict(max_len=64, n_slots=2, packed=True, use_paged_kernel=True)
+    for kw, temp in ((dict(prefill_chunk=16), 0.0),
+                     (dict(prefill_chunk=16, fused_step=True), 0.7),
+                     (dict(spec_decode=True, spec_k=3, draft_slices=2), 0.0),
+                     (dict(spec_decode=True, spec_k=2), 0.7),
+                     (dict(prefix_cache=False, use_paged_kernel=False), 0.7)):
+        outs = []
+        for dev in (cuda_device, "cpu"):
+            eng = ContinuousBatchingEngine(
+                cfg, params, EngineConfig(**{**base, **kw}), device=dev)
+            sm.KERNEL.launches = pa.KERNEL.launches = 0
+            rids = [eng.submit(p, SamplingParams(max_tokens=7, temperature=temp,
+                                                 seed=i))
+                    for i, p in enumerate(prompts)]
+            out = eng.drain()
+            outs.append([out[r] for r in rids])
+            if dev != "cpu":
+                assert sm.KERNEL.launches == 7 * cfg.n_layers * eng.model_calls()
+                assert pa.KERNEL.launches == cfg.n_layers * eng.arena_calls()
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(a, b)

@@ -5,9 +5,21 @@ Tests that need the card carry the ``gpu`` marker and take the
 decision is made when the test runs, never at import or collection, so
 every worker collects the same tests. On the card:
 ``python -m pytest -q -m gpu tests/test_torch_*.py``.
+
+The helpers below build the same smoke-size model in the JAX package and
+the port and drive engines through staggered request waves.
 """
+import functools
+
+import numpy as np
 import pytest
 import torch
+
+# The suite runs in several worker processes at once; with torch's default
+# intra-op pool in each, idle OpenMP threads spin and starve the other
+# workers (the port's parity files ran ~6x slower in 6 workers). The
+# tests' tensors are small: one thread each is enough.
+torch.set_num_threads(1)
 
 
 @pytest.fixture
@@ -19,3 +31,72 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+# -- shared by the parity files (JAX is imported inside, never at import:
+# the card's test environment has no JAX) ------------------------------------
+
+# the smoke config widened so that every GEMM is packable (K a multiple
+# of 32), with GQA (4 heads over 2 KV heads)
+SMOKE_FIELDS = dict(compute_dtype="float32", d_model=64, n_heads=4,
+                    n_kv_heads=2, d_ff=128)
+
+
+@functools.lru_cache(maxsize=None)
+def bridged_smoke(seed: int = 5):
+    """(jcfg, tcfg, jparams, tparams): the smoke-size smollm-135m config in
+    both packages and the JAX package's random params, bridged into the
+    port in this process."""
+    import jax
+
+    import repro.configs as C
+    from repro.models import params as jpp
+    from repro.models.model import Model as JModel
+    from repro_torch import configs as TC
+    from repro_torch.bridge import from_jax_params
+
+    jcfg = C.get_smoke("smollm-135m").replace(**SMOKE_FIELDS)
+    tcfg = TC.get_smoke("smollm-135m").replace(**SMOKE_FIELDS)
+    jparams = jpp.init_params(JModel(jcfg).build(), jax.random.key(seed))
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+def jax_engine(**kw):
+    """The JAX engine for EngineConfig(paged_impl="xla", **kw), one per
+    configuration and process, reset: its jit caches carry over between
+    tests, so the traffic's shapes compile once."""
+    eng = _jax_engine(tuple(sorted(kw.items())))
+    eng.reset()
+    return eng
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_engine(items):
+    from repro.serve import ContinuousBatchingEngine, EngineConfig
+
+    jcfg, _, jparams, _ = bridged_smoke()
+    return ContinuousBatchingEngine(
+        jcfg, jparams, config=EngineConfig(paged_impl="xla", **dict(items)))
+
+
+def run_waves(engine, sampling, waves):
+    """Submit each wave ``(prompts, n_tokens, gap)``, then step ``gap``
+    times; drain at the end. ``sampling(n_tokens, i)`` gives the i-th
+    request's SamplingParams. Returns the tokens of each request, in
+    submission order."""
+    out, rids = {}, []
+    for prompts, n_tok, gap in waves:
+        rids += [engine.submit(p, sampling(n_tok, len(rids) + i))
+                 for i, p in enumerate(prompts)]
+        for _ in range(gap):
+            out.update({f.rid: f.tokens for f in engine.step()})
+    while engine.scheduler.pending():
+        out.update({f.rid: f.tokens for f in engine.step()})
+    return [out[r] for r in rids]
+
+
+def assert_same_tokens(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
