@@ -20,12 +20,15 @@ Phases, each fatal on failure (exit code 1, and no result line):
    256) and with drafts' ``keep_slices=2``, and paged attention over 128
    logical blocks and at the fused mixed step's Sq 32 and 64. Paged
    attention is also held against its plain version at 16 to 128 queries
-   a row (up to 384 query rows).
+   a row (up to 384 query rows). Both kernels are also held against their
+   plain versions, and timed, at the published shapes of phi3-mini-3.8b
+   and deepseek-7b: one layer's GEMMs at M = 4, and paged attention at Dh
+   96 and 128 with one query head per KV head.
 4. the first slice at full width: SWIS-packed smollm-135m (random weights
    from a seed) serves 8 requests through ``ContinuousBatchingEngine``,
    with the kernels' launch counts checked against the model calls made, a
-   prefix hit, and greedy tokens equal to the port's CPU path on the same
-   packed weights.
+   prefix hit, and greedy tokens, at a 4-layer cut of the same packed
+   weights, equal on the card and on the port's CPU path.
 5. the rest of the serve engine at full width and depth: (a) chunked
    prefill of two 448-token prompts beside four short ones, (b) the same
    traffic through the fused mixed step, (c) speculative decode with
@@ -35,10 +38,21 @@ Phases, each fatal on failure (exit code 1, and no result line):
    tokens equal the plain decode path's on the card ((a)-(c)), a profiled
    repeat run's, and, at a 4-layer cut of the weights, the CPU plain
    path's (for (c), the proposed and accepted draft counts too). Each path
-   prints its wall and device-busy time per step.
+   prints its wall and device-busy time per step. In phases 4 and 5 the
+   metrics registry's ``step.model_dispatches`` (and ``spec.*``) must
+   equal the engine's own counters.
+6. observability and the launcher at full width: ``repro_torch.launch.
+   serve.run`` serves 8 requests of 64 prompt tokens, 32 tokens each, on 4
+   slots with packed weights, continuous (with a Chrome trace, checked for
+   nested step spans and one track per request, and a report with TTFT,
+   TPOT and cost totals) and static, each with launches equal to 210 x the
+   model dispatches; the phase-4 traffic runs with metrics off and on in
+   turns (wall ms per step both ways, the p50 and p95 of every step phase,
+   TTFT and TPOT), and at a 4-layer cut the card's counters, ``cost.*``
+   values, scheduler gauges and prefix stats equal the CPU plain path's.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (each
-kernel's launches summed over the paths of phases 4 and 5, and by path);
+kernel's launches summed over the paths of phases 4 to 6, and by path);
 the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -197,12 +211,13 @@ def swis_phase(dev):
     return perf
 
 
-def swis_layer_timing(dev, m, keep_slices=None):
-    """One smollm-135m layer's 7 GEMMs at ``m`` rows of fp32 x, through the
-    top ``keep_slices`` planes (None: all): the kernel held against the
-    plain version (rtol 1e-5, atol 1e-5*max|ref|), then the kernel, the
-    plain version and ``torch.matmul`` on the dense fp32 weight those planes
-    give (sums of per-GEMM means), and the bound."""
+def swis_layer_timing(dev, m, keep_slices=None, gemms=LAYER_GEMMS):
+    """One layer's 7 GEMMs ``gemms`` (smollm-135m's by default) at ``m``
+    rows of fp32 x, through the top ``keep_slices`` planes (None: all): the
+    kernel held against the plain version (rtol 1e-5, atol 1e-5*max|ref|),
+    then the kernel, the plain version and ``torch.matmul`` on the dense
+    fp32 weight those planes give (sums of per-GEMM means), and the
+    bound."""
     import torch
     from repro_torch.core.packing import PackedWeight
     from repro_torch.kernels import ops, ref
@@ -210,7 +225,7 @@ def swis_layer_timing(dev, m, keep_slices=None):
     ms = plain_ms = lib_ms = bound_ms = err = 0.0
     by = set()
     per_gemm = []  # "KxN kernel/torch.matmul" in us
-    for i, (k, n) in enumerate(LAYER_GEMMS):
+    for i, (k, n) in enumerate(gemms):
         pw = packed_weight(k, n, GROUP, N_SHIFTS, "swis", 50 + i, dev)
         scale = pw.scale.reshape(-1).expand(n).contiguous()
         pwn = PackedWeight(pw.sign_plane, pw.mask_planes, pw.shifts, scale,
@@ -375,22 +390,24 @@ def paged_phase(dev):
     return perf
 
 
-def paged_timing(dev, *, nb, n_blocks, live, sq=1, q_lens=None):
-    """One launch (9 heads over 3 KV heads, Dh 64, block size 8, fp32
-    cache, ``nb`` logical blocks with ``live`` of them filled per row, ``sq``
-    queries a row of which ``q_lens`` are real; a row with ``q_lens`` 1
-    decodes at its last position): the kernel, the plain version, one SDPA
-    call over the gathered K/V, and the bound."""
+def paged_timing(dev, *, nb, n_blocks, live, sq=1, q_lens=None, hkv=3, g=3,
+                 dh=64):
+    """One launch (``hkv * g`` heads over ``hkv`` KV heads of ``dh``, by
+    default smollm-135m's 9 over 3 of 64; block size 8, fp32 cache, ``nb``
+    logical blocks with ``live`` of them filled per row, ``sq`` queries a
+    row of which ``q_lens`` are real; a row with ``q_lens`` 1 decodes at its
+    last position): the kernel, the plain version, one SDPA call over the
+    gathered K/V, and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import mask_value, paged_attention
 
     b = len(live)
-    q, k, v, pos, tables, q_pos = arena(dev, b=b, nb=nb, n_blocks=n_blocks,
-                                        live=live, sq=sq, seed=9)
-    _, _, h, dh = q.shape
-    hkv, g = 3, 3
+    q, k, v, pos, tables, q_pos = arena(dev, b=b, hkv=hkv, g=g, dh=dh, nb=nb,
+                                        n_blocks=n_blocks, live=live, sq=sq,
+                                        seed=9)
+    h = hkv * g
     ql = torch.tensor(q_lens or [sq] * b, dtype=torch.int32, device=dev)
     tl = tables.long()
     bs = k.shape[1]
@@ -462,6 +479,65 @@ def extra_timings(dev, card):
           f"{p['max_abs_err']:.3g} against the plain version")
 
 
+def dense_family_phase(dev, card):
+    """Both kernels at the published shapes of the other one-card dense
+    configs, phi3-mini-3.8b (Dh 96) and deepseek-7b (Dh 128), both MHA
+    (G 1): one layer's 7 SWIS GEMMs at M = 4 (the decode rows) held
+    against the plain version and timed; paged attention at decode (Sq 1)
+    and verify-like (Sq 4, q_lens with 0) shapes in three cache dtypes,
+    every row against the plain version and repeat runs bit-identical, and
+    the decode launch timed. Returns the largest |err| of each kernel."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.paged_attention import paged_attention_decode
+
+    errs = {"swis_matmul": 0.0, "paged_attention": 0.0}
+    for arch in ("phi3-mini-3.8b", "deepseek-7b"):
+        cfg = configs.get_config(arch)
+        d, ff = cfg.d_model, cfg.d_ff
+        kv = cfg.n_kv_heads * cfg.head_dim
+        hkv, g, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+        gemms = [(d, d), (d, kv), (d, kv), (d, d), (d, ff), (d, ff), (ff, d)]
+        p = swis_layer_timing(dev, 4, gemms=gemms)
+        errs["swis_matmul"] = max(errs["swis_matmul"], p["max_abs_err"])
+        print(f"swis_matmul {arch} decode layer (7 GEMMs at M=4, K {d} and "
+              f"{ff}, fp32 x) on {card}: kernel {p['ms']:.4f} ms, "
+              f"torch.matmul {p['library_ms']:.4f} ms, plain "
+              f"{p['plain_ms']:.4f} ms, bound {p['bound_ms']:.5f} ms "
+              f"({p['bound_by']}); max|err| {p['max_abs_err']:.3g} against "
+              f"the plain version (rtol 1e-5, atol 1e-5*max|ref|)")
+        for sq, q_lens in ((1, None), (4, [4, 0, 2, 1])):
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
+                q, k, v, pos, tables, q_pos = arena(dev, hkv=hkv, g=g, dh=dh,
+                                                    sq=sq, seed=dh + sq)
+                k, v = k.to(dt), v.to(dt)
+                ql = None if q_lens is None else torch.tensor(
+                    q_lens, dtype=torch.int32, device=dev)
+                got = paged_attention_decode(q, k, v, pos, tables, q_pos,
+                                             q_lens=ql)
+                again = paged_attention_decode(q, k, v, pos, tables, q_pos,
+                                               q_lens=ql)
+                check(torch.equal(got, again), f"paged_attention {arch} "
+                      f"Sq={sq} {dt}: repeat run differs")
+                want = plain_paged(q, k, v, pos, tables, q_pos, ql, None)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                errs["paged_attention"] = max(errs["paged_attention"], err)
+                check(bool(torch.isfinite(got).all()) and torch.allclose(
+                    got, want, rtol=1e-5, atol=1e-5),
+                    f"paged_attention {arch} (Hkv {hkv}, G {g}, Dh {dh}) "
+                    f"Sq={sq} {dt}: max|err|={err:.3g} (1e-5)")
+        p = paged_timing(dev, nb=16, n_blocks=97, live=(12, 12, 11, 12),
+                         hkv=hkv, g=g, dh=dh)
+        print(f"paged_attention {arch} decode launch (B=4, {hkv} heads, G "
+              f"{g}, Dh {dh}, 16 logical blocks, fp32 cache) on {card}: "
+              f"kernel {p['ms']:.4f} ms, SDPA {p['library_ms']:.4f} ms, "
+              f"plain {p['plain_ms']:.4f} ms, bound {p['bound_ms']:.6f} ms "
+              f"({p['bound_by']}); Sq 1 and 4 x 3 cache dtypes within 1e-5 "
+              f"of the plain version on every row, repeats bit-identical")
+    return errs
+
+
 # -- phase 4: the slice at full width ------------------------------------------
 
 
@@ -503,6 +579,30 @@ def serve(engine, reqs, n_tokens):
             dec.append((dt, live))
         out.update({f.rid: f.tokens for f in finished})
     return [out[r] for r in rids], pre, dec
+
+
+def layer_cut(cfg, params, n_layers=4):
+    """(config, weights on the card, the same weights on the CPU) of the
+    first ``n_layers`` layers: the depth at which the CPU plain path runs
+    a path's traffic in seconds."""
+    from repro_torch.models import params as pp
+
+    cut = pp.tree_map(lambda a: a, params)
+    cut["blocks"] = pp.tree_map(lambda a: a[:n_layers].contiguous(),
+                                params["blocks"])
+    return (cfg.replace(n_layers=n_layers), cut,
+            pp.tree_map(lambda a: a.cpu(), cut))
+
+
+def check_dispatches(label, engine):
+    """The metrics registry counted the engine's model calls (and, when it
+    speculates, its proposed and accepted drafts) as its own counters did."""
+    c = engine.metrics()["engine"]["counters"]
+    got = (c["step.model_dispatches"], c.get("spec.proposed", 0),
+           c.get("spec.accepted", 0))
+    want = (engine.model_calls(), engine.spec_proposed, engine.spec_accepted)
+    check(got == want, f"{label}: (step.model_dispatches, spec.proposed, "
+          f"spec.accepted) {got} != the engine's own counters {want}")
 
 
 def top2(model, params, seq, dev):
@@ -580,6 +680,7 @@ def slice_phase(dev, card, kernels):
     toks_gpu, pre, dec = serve(gpu, reqs, 32)
     counts = {kern.name: kern.launches for kern in kernels}
     calls = gpu.n_prefill_calls + gpu.n_decode_steps
+    check_dispatches("phase 4", gpu)
     per_call = 7 * cfg.n_layers
     print(f"main path: {gpu.n_prefill_calls} prefill calls, "
           f"{gpu.n_decode_steps} decode steps; launches {counts}")
@@ -606,23 +707,21 @@ def slice_phase(dev, card, kernels):
 
     breakdown(gpu, reqs[:4])
 
-    # the same requests on the same packed weights, through the CPU path
+    # the same requests on the same packed weights cut to 4 layers, on the
+    # card and through the CPU plain path
     t0 = time.perf_counter()
-    cpu_params = pp.tree_map(lambda t: t.cpu(), gpu.params)
-    cpu = ContinuousBatchingEngine(cfg, cpu_params, ecfg, device="cpu")
+    cfg4, cut, cut_cpu = layer_cut(cfg, gpu.params)
+    toks_card4, _, _ = serve(ContinuousBatchingEngine(cfg4, cut, ecfg,
+                                                      device=dev), reqs, 32)
+    cpu = ContinuousBatchingEngine(cfg4, cut_cpu, ecfg, device="cpu")
     toks_cpu, _, _ = serve(cpu, reqs, 32)
-    print(f"cpu plain path served the same requests in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for r, (a, b) in enumerate(zip(toks_gpu, toks_cpu)):
-        if (a != b).any():
-            step = int((a != b).argmax())
-            seq = list(reqs[r]) + [int(t) for t in a[:step]]
-            print(f"MISMATCH request {r} step {step}: gpu {a[step]} cpu {b[step]}; "
-                  f"top-2 gpu {top2(gpu.model, gpu.params, seq, dev)} "
-                  f"cpu {top2(cpu.model, cpu_params, seq, 'cpu')}")
-            raise PhaseError(f"greedy tokens differ from the CPU path "
-                             f"(request {r}, step {step})")
-    print("greedy tokens: 8/8 requests identical to the CPU plain path")
+    same_tokens("phase 4 (4-layer cut) vs the CPU plain path", toks_card4,
+                toks_cpu, [(p, 32) for p in reqs],
+                [("card", cpu.model, cut, dev),
+                 ("cpu", cpu.model, cut_cpu, "cpu")])
+    print(f"greedy tokens at a 4-layer cut: 8/8 requests identical on the "
+          f"card and the CPU plain path (CPU "
+          f"{time.perf_counter() - t0:.1f} s)")
     return counts, gpu
 
 
@@ -710,7 +809,6 @@ def paths_phase(dev, card, kernels, cfg, params):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.swis import QuantConfig
-    from repro_torch.models import params as pp
     from repro_torch.serve import (ContinuousBatchingEngine, DecodeEngine,
                                    EngineConfig)
 
@@ -735,10 +833,7 @@ def paths_phase(dev, card, kernels, cfg, params):
     per_layer = 7  # SWIS GEMMs per layer
     by_path = {}
     plain_cache = {}
-    cut = pp.tree_map(lambda a: a, params)
-    cut["blocks"] = pp.tree_map(lambda a: a[:4].contiguous(), params["blocks"])
-    cfg4 = cfg.replace(n_layers=4)
-    cut_cpu = pp.tree_map(lambda a: a.cpu(), cut)
+    cfg4, cut, cut_cpu = layer_cut(cfg, params)
     for label, opts, traffic, temp, plain_opts in paths:
         eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**{**base, **opts}),
                                        device=dev)
@@ -747,6 +842,7 @@ def paths_phase(dev, card, kernels, cfg, params):
         toks, steps, wall, _ = drive(eng, traffic, temp)
         counts = {kern.name: kern.launches for kern in kernels}
         calls, arena_calls = eng.model_calls(), eng.arena_calls()
+        check_dispatches(label, eng)
         check(counts["swis_matmul"] == per_layer * cfg.n_layers * calls,
               f"{label}: swis_matmul launches {counts['swis_matmul']} != "
               f"{per_layer * cfg.n_layers} x {calls} model calls")
@@ -855,6 +951,204 @@ def paths_phase(dev, card, kernels, cfg, params):
     return by_path
 
 
+# -- phase 6: observability and the launcher at full width --------------------
+
+
+def chrome_trace_check(path, n_steps, n_requests):
+    """The launcher's Chrome trace loads; every phase span of the engine
+    track nests in a step span, one step span per engine step; one track
+    per request."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    check(all("ph" in e and "ts" in e and "pid" in e for e in events),
+          f"{path}: an event lacks ph, ts or pid")
+    spans = [e for e in events if e["ph"] == "X" and e["pid"] == 1]
+    steps = [e for e in spans if e["name"] == "step"]
+    check(len(steps) == n_steps, f"{path}: {len(steps)} step spans for "
+          f"{n_steps} engine steps")
+    phases = [e for e in spans if e["name"] != "step"]
+    check(phases and all(
+        any(s["ts"] <= e["ts"] and e["ts"] + e["dur"]
+            <= s["ts"] + s["dur"] + 1e-3 for s in steps) for e in phases),
+        f"{path}: a phase span lies outside every step span")
+    tracks = {e["tid"] for e in events if e["pid"] == 2 and e["ph"] != "M"}
+    check(len(tracks) == n_requests, f"{path}: {len(tracks)} request "
+          f"tracks for {n_requests} requests")
+    return len(events), len(phases)
+
+
+def instrument_us(engine, reps=2000):
+    """Host microseconds a decode step of ``engine`` spends in its
+    instruments, replayed ``reps`` times without the model: the step's
+    phase timers and spans, its cost record, a decode-step trace event per
+    slot, the step counter and the utilization gauges. The wall time of a
+    step varies between runs by far more than this, so the replay is how
+    the instruments' cost is read."""
+    m, tracer = engine.metrics_registry, engine.tracer
+    cost = engine.cost_model.decode(engine.n_slots)
+    t0 = time.perf_counter()
+    for i in range(reps):
+        with engine._phase("step.total_s", "step"):
+            with engine._phase("step.admit_s", "admit"):
+                pass
+            engine._record_cost(cost)
+            for name in ("decode_dispatch", "device_sync", "sample_host"):
+                with engine._phase(f"step.{name}_s", name):
+                    pass
+        for slot in range(engine.n_slots):
+            tracer.event("decode_step", slot, slot=slot, step=i)
+        m.counter("step.count").inc()
+        if m.enabled:
+            total = m.histogram("step.total_s").total
+            m.gauge("cost.hbm_bytes_per_s").set(
+                m.counter("cost.hbm_bytes").value / total)
+            m.gauge("cost.flops_per_s").set(
+                m.counter("cost.flops").value / total)
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def observability_phase(dev, card, kernels, cfg, params):
+    """The serve launcher in this process at full smollm-135m width and
+    depth (packed weights, 8 requests of 64 prompt tokens, 32 tokens each,
+    4 slots), continuous with a Chrome trace and then static; the phase-4
+    traffic with metrics off and on (wall time per step both ways, the
+    phase timers, TTFT and TPOT); and at a 4-layer cut of ``params`` the
+    card's counters, ``cost.*`` values, scheduler gauges and prefix stats
+    against the CPU plain path's."""
+    from repro_torch.core.swis import QuantConfig
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import ContinuousBatchingEngine, EngineConfig
+
+    per_call = 7 * cfg.n_layers
+    by_path = {}
+    trace_path = ROOT / "build" / "serve_trace.json"
+    trace_path.parent.mkdir(exist_ok=True)
+    argv = ["--arch", "smollm-135m", "--packed", "--requests", "8",
+            "--prompt-len", "64", "--tokens", "32", "--n-slots", "4"]
+    for engine in ("continuous", "static"):
+        extra = (["--trace-out", str(trace_path)] if engine == "continuous"
+                 else ["--engine", "static"])
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        # the continuous run draws and packs its own weights, as a user's
+        # does; the static run serves the same weights, packed in phase 4
+        report, eng = launcher.run(launcher.parse_args(argv + extra),
+                                   params=params if engine == "static"
+                                   else None)
+        secs = time.perf_counter() - t0
+        counts = {kern.name: kern.launches for kern in kernels}
+        by_path[f"6 launcher {engine}"] = counts
+        if engine == "static":
+            calls = 32  # one prefill and 31 lockstep decode calls
+        else:
+            calls = eng.metrics()["engine"]["counters"]["step.model_dispatches"]
+            check_dispatches("launcher", eng)
+        check(counts == {"swis_matmul": per_call * calls,
+                         "paged_attention": 0},
+              f"launcher {engine}: launches {counts} != {per_call} SWIS x "
+              f"{calls} model dispatches and no paged launch (the launcher "
+              f"serves the gather path)")
+        print(f"launcher --engine {engine} on {card}: {secs:.1f} s in all, "
+              f"wall_s {report['wall_s']}, "
+              f"{report['tok_per_s']} tokens/s; {calls} model dispatches, "
+              f"launches {counts}")
+        if engine == "continuous":
+            want = {"ttft_p50_s", "ttft_p95_s", "tpot_p50_s", "cost_hbm_mib",
+                    "cost_gflops", "cost_hbm_bytes_per_s", "prefix_hit_rate"}
+            check(want <= set(report), f"launcher report lacks "
+                  f"{sorted(want - set(report))}")
+            n_steps = eng.metrics()["engine"]["counters"]["step.count"]
+            n_events, n_phases = chrome_trace_check(trace_path, n_steps, 8)
+            print(f"  Chrome trace {trace_path.relative_to(ROOT)}: "
+                  f"{n_events} events, {n_steps} step spans with {n_phases} "
+                  f"phase spans nested inside, 8 request tracks; report "
+                  f"TTFT p50 {report['ttft_p50_s']} s, TPOT p50 "
+                  f"{report['tpot_p50_s']} s, cost {report['cost_hbm_mib']} "
+                  f"MiB and {report['cost_gflops']} GFLOP")
+        del eng
+
+    # the phase-4 traffic with metrics off and on, in turns
+    qcfg = QuantConfig(method="swis", n_shifts=N_SHIFTS, group_size=GROUP)
+    opts = dict(n_slots=4, block_size=8, packed=True, use_paged_kernel=True,
+                max_len=128, quant_cfg=qcfg)
+    traffic = [(p, 32) for p in prompts(cfg.vocab)]
+    engines = {on: ContinuousBatchingEngine(
+        cfg, params, EngineConfig(enable_metrics=on, **opts), device=dev)
+        for on in (False, True)}
+    walls = {False: [], True: []}
+    toks = {}
+    # in turns, each side first as often: the host's wall time per step
+    # drifts between runs by more than the instruments cost (read apart
+    # by instrument_us below)
+    for on in (False, True, True, False):
+        toks[on], steps, wall, _ = drive(engines[on], traffic)
+        walls[on].append(wall)
+    same_tokens("phase-4 traffic, metrics on vs off", toks[True], toks[False],
+                traffic, [])
+    on = engines[True]
+    check_dispatches("phase-4 traffic, metrics on", on)
+    m = on.metrics()
+    counters = m["engine"]["counters"]
+    check("cost.gathered_bytes" not in counters and on.paged_impl == "cuda",
+          f"the paged kernel gathers nothing, but the cost model counted "
+          f"{counters.get('cost.gathered_bytes')} gathered bytes "
+          f"(paged_impl {on.paged_impl})")
+    med = {k: sorted(v)[len(v) // 2 - 1:len(v) // 2 + 1] for k, v in
+           walls.items()}
+    print(f"phase-4 traffic on {card}: {steps} steps a run; wall ms/step "
+          + "; ".join(f"metrics {'on' if k else 'off'} "
+                      + ", ".join(f"{w:.2f}" for w in v)
+                      + f" (median {sum(med[k]) / 2:.2f}, range "
+                      f"{max(v) - min(v):.2f})" for k, v in walls.items())
+          + "; tokens equal")
+    phases = m["engine"]["phases"]
+    print("  step phases, p50 / p95 ms (metrics on, last run): " + ", ".join(
+        f"{k[len('step.'):-2]} {v['p50'] * 1e3:.3f} / {v['p95'] * 1e3:.3f} "
+        f"(n {v['count']})" for k, v in sorted(phases.items())
+        if k.startswith("step.")))
+    tsum = on.tracer.summary()
+    print(f"  TTFT p50 {tsum['ttft_s']['p50'] * 1e3:.2f} ms, p95 "
+          f"{tsum['ttft_s']['p95'] * 1e3:.2f} ms; TPOT p50 "
+          f"{tsum['tpot_s']['p50'] * 1e3:.2f} ms; queue wait p50 "
+          f"{tsum['queue_wait_s']['p50'] * 1e3:.2f} ms ({tsum['requests']} "
+          f"requests)")
+    print("  cost totals: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in sorted(counters.items())
+        if k.startswith("cost.") and k.count(".") == 1) + "; gauges "
+        + ", ".join(f"{k} {v:.6g}" for k, v in sorted(
+            m["engine"]["gauges"].items())))
+    us = {k: instrument_us(e) for k, e in engines.items()}
+    print(f"  instruments of one decode step, replayed without the model on "
+          f"this host: {us[True]:.1f} us with metrics on, {us[False]:.1f} us "
+          f"off")
+    del engines, on
+
+    # 4-layer cut on the launcher's gather path: card against CPU, exactly
+    cfg4, cut, cut_cpu = layer_cut(cfg, params)
+    gather = EngineConfig(**{**opts, "use_paged_kernel": False})
+    runs = []
+    for d, tree in ((dev, cut), ("cpu", cut_cpu)):
+        eng = ContinuousBatchingEngine(cfg4, tree, gather, device=d)
+        got = drive(eng, traffic)[0]
+        m = eng.metrics()
+        runs.append((got, m["engine"]["counters"], m["scheduler"],
+                     m["prefix_cache"], m["engine"]["cost_model"]))
+    (tc, *card4), (tp, *cpu4) = runs
+    same_tokens("phase-4 traffic (4-layer cut, gather path) vs the CPU plain "
+                "path", tc, tp, traffic, [])
+    for name, a, b in zip(("counters", "scheduler gauges", "prefix stats",
+                           "cost model"), card4, cpu4):
+        check(a == b, f"4-layer cut: {name} on the card differ from the CPU "
+              f"plain path's: " + str({k: (a.get(k), b.get(k))
+                                       for k in set(a) | set(b)
+                                       if a.get(k) != b.get(k)}))
+    print(f"  4-layer cut, gather path: tokens, {len(card4[0])} counters "
+          f"(cost.* included), scheduler gauges, prefix stats and the cost "
+          f"model summary equal on the card and the CPU plain path")
+    return by_path
+
+
 def main() -> int:
     try:
         import torch
@@ -894,15 +1188,30 @@ def main() -> int:
                     print(f"    {line.strip()}")
 
         # 3. kernels against their plain versions, then timing
+        t0 = time.perf_counter()
         perf = {"swis_matmul": swis_phase(dev), "paged_attention": paged_phase(dev)}
         extra_timings(dev, card)
+        t1 = time.perf_counter()
+        for name, err in dense_family_phase(dev, card).items():
+            perf[name]["max_abs_err"] = max(perf[name]["max_abs_err"], err)
+        elapsed = {"3": t1 - t0, "3 dense shapes": time.perf_counter() - t1}
 
         # 4. the first slice's path at full width
+        t0 = time.perf_counter()
         counts, gpu = slice_phase(dev, card, kernels)
+        elapsed["4"] = time.perf_counter() - t0
 
         # 5. the rest of the serve engine at full width
+        t0 = time.perf_counter()
         by_path = {"phase 4 greedy block engine": counts}
         by_path.update(paths_phase(dev, card, kernels, gpu.cfg, gpu.params))
+        elapsed["5"] = time.perf_counter() - t0
+
+        # 6. observability and the launcher at full width
+        t0 = time.perf_counter()
+        by_path.update(observability_phase(dev, card, kernels, gpu.cfg,
+                                           gpu.params))
+        elapsed["6"] = time.perf_counter() - t0
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -925,7 +1234,8 @@ def main() -> int:
                      "bound_by": p["bound_by"], "library_ms": p["library_ms"],
                      "timed": p["timed"]})
     print(f"kernel times from: {sorted(TIMING_SOURCE)}; "
-          f"total {time.perf_counter() - t_start:.1f} s on {card}")
+          f"total {time.perf_counter() - t_start:.1f} s on {card} (phases "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in elapsed.items()) + ")")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@ from repro_torch.configs.base import (ArchConfig, GriffinConfig,
 from repro_torch.core.swis import QuantConfig
 
 _MODULES = {
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
     "smollm-135m": "smollm_135m",
+    "deepseek-7b": "deepseek_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -103,3 +103,14 @@ def pack(qw: QuantizedWeight) -> PackedWeight:
         shifts=shift_store, scale=torch.as_tensor(qw.scale, dtype=torch.float32),
         group_size=qw.cfg.group_size, n_shifts=n, k=k, c=c,
         method=qw.cfg.method)
+
+
+def compression_ratio(group_size: int, n_shifts: int, method: str = "swis",
+                      bits: int = 8) -> float:
+    """Storage of ``bits``-bit dense weights over the packed format's
+    (paper Fig. 5): per group of ``group_size`` weights, one sign and
+    ``n_shifts`` mask bits a weight, plus 3 bits a shift (SWIS-C: one
+    3-bit offset a group)."""
+    m, n = group_size, n_shifts
+    shift_bits = 3 if method == "swis_c" else 3 * n
+    return bits * m / (m * (1 + n) + shift_bits)

@@ -1,12 +1,10 @@
 """Typed construction / submission surface for the serve engine (PyTorch
 port of ``repro.serve.config``).
 
-The fields keep the reference's names and meaning, with these
-differences: ``cache_dtype`` is a torch dtype; there is no ``paged_impl``
-(the device of the tensors picks the kernel or its plain version); and
-``enable_metrics`` defaults to False because metrics and tracing are not
-ported yet: the engine raises ``NotImplementedError`` for
-``enable_metrics=True``, and serves every other option.
+The fields keep the reference's names, meaning and defaults, with two
+differences: ``cache_dtype`` is a torch dtype, and there is no
+``paged_impl`` (the device of the tensors picks the kernel or its plain
+version; ``engine.paged_impl`` names the one in use).
 """
 from __future__ import annotations
 
@@ -31,7 +29,9 @@ class EngineConfig:
       config; None: the arch's policy), use_paged_kernel (paged attention
       over the arena instead of the gathered K/V).
     Speculative decode: spec_decode, spec_k, draft_slices.
-    Observability: enable_metrics, trace_capacity.
+    Observability: enable_metrics (phase timers, counters, the cost model
+      and the lifecycle tracer; on by default, as in the reference),
+      trace_capacity (trace ring size, events).
     """
 
     max_len: int = 256
@@ -55,7 +55,7 @@ class EngineConfig:
     spec_k: int = 3
     draft_slices: Optional[int] = None
     # observability
-    enable_metrics: bool = False
+    enable_metrics: bool = True
     trace_capacity: int = 65536
 
     def __post_init__(self):

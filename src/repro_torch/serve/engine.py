@@ -11,9 +11,12 @@ Two engines share the model, the packing path and the seeded sampler
   by chunk) while the other slots keep decoding, one batched step at a
   time. It serves every option of the reference engine: the block arena
   with the radix prefix cache or contiguous rows, chunked prefill, the
-  fused mixed step, self-speculative decode and seeded sampling. Metrics
-  and tracing (``enable_metrics``) are not ported yet and raise
-  ``NotImplementedError``.
+  fused mixed step, self-speculative decode and seeded sampling, with the
+  reference's observability: phase timers, counters and per-dispatch
+  cost-model counters in a :class:`~repro_torch.serve.metrics.
+  MetricsRegistry`, request lifecycles and phase spans in a
+  :class:`~repro_torch.serve.trace.RequestTracer`, all read through
+  ``engine.metrics()`` (``enable_metrics``, on by default).
 * :class:`DecodeEngine` — the static-batch engine (one lockstep batch, a
   fresh contiguous cache per call), kept as the parity oracle.
 
@@ -36,15 +39,20 @@ from repro_torch.core.swis import QuantConfig
 from repro_torch.models import params as pp
 from repro_torch.models.model import Model
 from repro_torch.serve import prng
+from repro_torch.serve import trace as tr
 from repro_torch.serve.config import EngineConfig, SamplingParams
+from repro_torch.serve.costmodel import CostModel
 from repro_torch.serve.kv_cache import SlotKVCache
+from repro_torch.serve.metrics import MetricsRegistry, cost_buckets
 from repro_torch.serve.prefix_cache import BlockPool, RadixPrefixCache
 from repro_torch.serve.quantized import pack_tree, total_slices
 from repro_torch.serve.scheduler import Finished, RequestScheduler
+from repro_torch.serve.trace import RequestTracer
 
-_NOT_PORTED = {
-    "enable_metrics": "metrics and tracing (ROADMAP A7, port queue item 6)",
-}
+# shared bucket edges for per-dispatch cost histograms (the registry only
+# consults edges when a histogram is first created)
+_COST_EDGES = cost_buckets()
+_COST_FIELDS = ("flops", "hbm_bytes", "swis_cycles")
 
 
 def sample_step(logits: torch.Tensor, keys, steps, temps) -> torch.Tensor:
@@ -105,6 +113,15 @@ class ContinuousBatchingEngine:
     drafts from the model cut to ``draft_slices`` bit-planes, one verify
     launch, token-exact against plain decode).
 
+    Observability, as in the reference: ``metrics()`` is one snapshot of
+    the phase timers (``step.*_s``), counters (``step.model_dispatches``,
+    ``spec.*``, ``cost.*``), scheduler gauges, prefix-cache and block-pool
+    stats and the trace ring; ``tracer`` holds the request lifecycles and
+    phase spans (JSONL and Chrome trace export). ``paged_impl`` names the
+    paged backend the cost model counts: ``"cuda"`` (the kernel, no
+    gathered K/V), ``"xla"`` (the plain version on the CPU, which walks
+    the blocks as the reference's XLA scan), or None (the gather path).
+
     Counters of the model calls made, so a caller can check how many
     kernel launches a run should have made: ``n_prefill_calls`` (whole or
     suffix prefill), ``n_chunk_calls`` (separate chunk prefill),
@@ -119,10 +136,12 @@ class ContinuousBatchingEngine:
         if not isinstance(config, EngineConfig):
             raise TypeError(f"config must be an EngineConfig, got "
                             f"{type(config).__name__}")
-        for name, what in _NOT_PORTED.items():
-            if getattr(config, name) not in (None, False):
-                raise NotImplementedError(f"{name}: {what} is not ported yet")
         self.config = config
+        # enable_metrics=False swaps in no-op instruments: the hot path
+        # pays one attribute check per phase
+        self.metrics_registry = MetricsRegistry(enabled=config.enable_metrics)
+        self.tracer = RequestTracer(capacity=config.trace_capacity,
+                                    enabled=config.enable_metrics)
         self.device = _device.resolve(device)
         params = pp.tree_map(lambda a: a.to(self.device), params)
         self.cfg, self.params, self.pack_stats = _maybe_pack(
@@ -165,6 +184,8 @@ class ContinuousBatchingEngine:
         self.prefill_backlog = config.prefill_backlog
         self.fused_step = config.fused_step
         self.paged = config.use_paged_kernel
+        self.paged_impl = (None if not self.paged else
+                           "cuda" if self.device.type == "cuda" else "xla")
         # self-speculative decode: the draft model is the target model
         # under a policy whose keep_slices cuts every packed GEMM to the
         # top draft_slices bit-planes (None: a full-precision draft)
@@ -180,6 +201,9 @@ class ContinuousBatchingEngine:
                     f"draft_slices <= {total})")
             self.draft_model = Model(self.cfg.replace(quant=dataclasses.replace(
                 self.cfg.quant, keep_slices=config.draft_slices)))
+        # analytical per-dispatch cost model: every model call records its
+        # predicted FLOPs, HBM bytes and SWIS shift-pass cycles
+        self.cost_model = CostModel.for_engine(self)
         self._dummy_key = prng.key(0)
         self.scheduler = None
         self.reset()
@@ -205,32 +229,63 @@ class ContinuousBatchingEngine:
             key = prng.key(params.seed)
         else:
             key = prng.fold_in(self._dummy_key, self.scheduler.next_rid())
-        return self.scheduler.submit(prompt, params.max_tokens,
-                                     params.temperature, key)
+        rid = self.scheduler.submit(prompt, params.max_tokens,
+                                    params.temperature, key)
+        self.tracer.event(tr.SUBMIT, rid, prompt_len=int(prompt.size),
+                          n_tokens=int(params.max_tokens))
+        return rid
 
     def step(self) -> List[Finished]:
         """One scheduler round: admit queued requests (unless the chunk
         backlog is full) and prefill them or stage their chunks, run at
         most one chunk of prefill, then one batched decode step over the
         DECODING slots. With ``fused_step`` the chunk and the decode batch
-        ride one ``mixed_step`` launch."""
-        if len(self._prefill_groups) < self.prefill_backlog:
-            admitted = self.scheduler.admit()
-            if admitted:
-                self._prefill_admitted(admitted)
-        decoded = False
-        if self._prefill_groups:
-            if self._prefill_groups[0].get("fused"):
-                self._mixed_once()  # the chunk AND the decode batch
-                decoded = True
-            else:
-                self._advance_chunk()
-        if not decoded and self.scheduler.needs_decode():
-            if self.spec_decode:
-                self._spec_once()
-            else:
-                self._decode_once()
-        return self.scheduler.pop_finished()
+        ride one ``mixed_step`` launch.
+
+        Phase timers (``step.*_s`` histograms): admit, prefix_match,
+        prefill_dispatch, chunk_advance, mixed_dispatch, decode_dispatch,
+        device_sync (the wait for the logits, split from the host's
+        sampling), sample_host, and ``step.total_s`` for the whole round;
+        ``step.model_dispatches`` counts model calls."""
+        m = self.metrics_registry
+        self.tracer.current_step = self._step_no
+        with self._phase("step.total_s", "step"):
+            if len(self._prefill_groups) < self.prefill_backlog:
+                with self._phase("step.admit_s", "admit"):
+                    admitted = self.scheduler.admit()
+                if admitted:
+                    for slot, st in admitted:
+                        self.tracer.event(tr.ADMIT, st.req.rid, slot=slot)
+                    self._prefill_admitted(admitted)
+            decoded = False
+            if self._prefill_groups:
+                if self._prefill_groups[0].get("fused"):
+                    self._mixed_once()  # the chunk AND the decode batch
+                    decoded = True
+                else:
+                    with self._phase("step.chunk_advance_s",
+                                     "chunk_advance"):
+                        self._advance_chunk()
+            if not decoded and self.scheduler.needs_decode():
+                if self.spec_decode:
+                    self._spec_once()
+                else:
+                    self._decode_once()
+            finished = self.scheduler.pop_finished()
+        for f in finished:
+            self.tracer.event(tr.FINISH, f.rid, n_tokens=len(f.tokens))
+        m.counter("step.count").inc()
+        self._step_no += 1
+        if m.enabled:
+            # model-vs-measured utilization: bytes the cost model says the
+            # issued dispatches should have moved, over measured step time
+            total = m.histogram("step.total_s").total
+            if total > 0.0:
+                m.gauge("cost.hbm_bytes_per_s").set(
+                    m.counter("cost.hbm_bytes").value / total)
+                m.gauge("cost.flops_per_s").set(
+                    m.counter("cost.flops").value / total)
+        return finished
 
     def drain(self) -> Dict[int, np.ndarray]:
         """Step until idle. Returns {rid: prompt + generated tokens}."""
@@ -256,7 +311,8 @@ class ContinuousBatchingEngine:
 
     def reset(self) -> None:
         """Return an idle engine to its post-construction state: empty
-        queue, empty prefix cache, zeroed counters. Stale arena K/V stays:
+        queue, empty prefix cache, zeroed counters, metrics and trace (the
+        registry's instruments are zeroed in place). Stale arena K/V stays:
         every allocation path scrubs the blocks it takes over (the whole
         scattered working tree unchunked, ``invalidate_blocks`` chunked)
         before their positions can enter a mask."""
@@ -284,6 +340,9 @@ class ContinuousBatchingEngine:
         self.n_verify_steps = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
+        self.metrics_registry.reset()
+        self.tracer.reset()
+        self._step_no = 0
 
     def model_calls(self) -> int:
         """Every model call so far (each runs every GEMM once)."""
@@ -299,9 +358,75 @@ class ContinuousBatchingEngine:
         return (self.n_mixed_steps + self.n_decode_steps + self.n_draft_steps
                 + self.n_verify_steps)
 
+    # -- observability ---------------------------------------------------
+
+    def _phase(self, hist: str, span: str):
+        """Phase timing context: one clock pair feeds the ``hist``
+        histogram and (tracer enabled) a named span in the trace ring,
+        nested under the enclosing ``step`` span by containment."""
+        if self.tracer.enabled:
+            return self.tracer.span_timer(
+                span, self.metrics_registry.histogram(hist))
+        return self.metrics_registry.timer(hist)
+
+    def _device_sync(self, logits: torch.Tensor) -> None:
+        """With metrics on, wait for the device to finish ``logits`` under
+        ``step.device_sync_s``, so that the dispatch phase before it times
+        the launches and ``sample_host`` the host's sampling (the logits
+        are read right after either way). Nothing to wait for on the CPU."""
+        if not self.metrics_registry.enabled:
+            return
+        with self._phase("step.device_sync_s", "device_sync"):
+            if logits.device.type == "cuda":
+                torch.cuda.synchronize(logits.device)
+
+    def _record_cost(self, cost) -> None:
+        """Count one model call and record its predicted cost: global and
+        per-kind ``cost.*`` counters, per-kind per-dispatch histograms."""
+        m = self.metrics_registry
+        m.counter("step.model_dispatches").inc()
+        if not m.enabled:
+            return
+        for field in _COST_FIELDS:
+            v = getattr(cost, field)
+            m.counter(f"cost.{field}").inc(v)
+            m.counter(f"cost.{cost.kind}.{field}").inc(v)
+            m.histogram(f"cost.{cost.kind}.{field}",
+                        _COST_EDGES).observe(v)
+        if cost.gathered_bytes:
+            m.counter("cost.gathered_bytes").inc(cost.gathered_bytes)
+
+    def metrics(self) -> Dict[str, Any]:
+        """One observability snapshot, keyed as the reference's: engine
+        phase timers and counters, scheduler gauges, prefix-cache and
+        block-pool stats, and trace-ring health. ``prefix_stats()`` is a
+        view of the ``prefix_cache`` section."""
+        snap = self.metrics_registry.snapshot()
+        out: Dict[str, Any] = {
+            "engine": {"n_slots": self.n_slots, "max_len": self.max_len,
+                       "prefill_chunk": self.prefill_chunk,
+                       "paged_impl": self.paged_impl,
+                       "chunk_backlog_depth": len(self._prefill_groups),
+                       "phases": snap["histograms"],
+                       "counters": snap["counters"],
+                       "gauges": snap["gauges"],
+                       "cost_model": self.cost_model.summary()},
+            "scheduler": self.scheduler.gauges(),
+            "prefix_cache": self.prefix_stats(),
+            "trace": {"events": len(self.tracer),
+                      "dropped": self.tracer.dropped,
+                      "capacity": self.tracer.capacity,
+                      "spans": len(self.tracer.spans()),
+                      "dropped_spans": self.tracer.dropped_spans},
+        }
+        if self.prefix_cache is not None:
+            out["block_pool"] = self.prefix_cache.pool.occupancy()
+        return out
+
     def prefix_stats(self) -> Dict[str, Any]:
         """Prefix-cache health: hit rate, tokens saved vs computed, block
-        commits and evictions, arena occupancy."""
+        commits and evictions, arena occupancy; the same dict as
+        ``metrics()["prefix_cache"]``."""
         if self.prefix_cache is None:
             return {"enabled": False,
                     "prefill_tokens": self._stat_prefill_tokens,
@@ -360,8 +485,15 @@ class ContinuousBatchingEngine:
             if ids is None:
                 self.prefix_cache.release(matched)
                 failed.append(slot)
+                self.tracer.event(tr.UNADMIT, req.rid, slot=slot,
+                                  blocks_needed=own,
+                                  blocks_free=pool.n_free())
                 continue
             self.prefix_cache.count_lookup(matched)
+            if matched:
+                self.tracer.event(tr.PREFIX_HIT, req.rid, slot=slot,
+                                  blocks=len(matched),
+                                  tokens=len(matched) * bs)
             pool.incref(ids)
             if self.prefill_chunk is None:
                 self.cache.set_table(slot, matched + ids)
@@ -396,11 +528,14 @@ class ContinuousBatchingEngine:
 
     def _prefill_admitted(self, admitted) -> None:
         if self.block_mode:
-            admitted = self._assign_blocks(admitted)
+            with self._phase("step.prefix_match_s", "prefix_match"):
+                admitted = self._assign_blocks(admitted)
             if self.prefill_chunk is not None:
-                self._stage_chunked(admitted)
+                with self._phase("step.chunk_advance_s", "chunk_advance"):
+                    self._stage_chunked(admitted)
                 return
-        self._run_prefill(admitted)
+        with self._phase("step.prefill_dispatch_s", "prefill_dispatch"):
+            self._run_prefill(admitted)
 
     def _run_prefill(self, admitted) -> None:
         # one batched prefill per (prefix length, bucketed suffix length)
@@ -424,6 +559,7 @@ class ContinuousBatchingEngine:
             last_idx = self._dev(lasts)
             self._stat_prefill_tokens += int(lasts.sum()) + g
             self.n_prefill_calls += 1
+            self._record_cost(self.cost_model.prefill(g, s_pad))
             if self.block_mode:
                 meta = [self._slot_meta[slot] for slot, _ in group]
                 cache = self.cache.prefix_tree([m["matched"] for m in meta],
@@ -448,7 +584,8 @@ class ContinuousBatchingEngine:
             first = _sample(logits, [st.req.key for _, st in group],
                             np.zeros(g, np.int32),
                             [st.req.temperature for _, st in group])
-            for (slot, _), tok in zip(group, first):
+            for (slot, st), tok in zip(group, first):
+                self.tracer.event(tr.FIRST_TOKEN, st.req.rid, slot=slot)
                 self.scheduler.record_prefill(slot, tok)
 
     def _stage_chunked(self, admitted) -> None:
@@ -500,6 +637,7 @@ class ContinuousBatchingEngine:
                 length = min(self.cache.eff_len, max(length, bs))
                 grp["tree"] = self.cache.prefix_tree(
                     [m["matched"] for m in metas], p_len, length=length)
+                grp["tree_len"] = length  # the chunk's attended positions
             self._prefill_groups.append(grp)
 
     def _finish_group(self, grp, first) -> None:
@@ -509,6 +647,7 @@ class ContinuousBatchingEngine:
             meta = grp["metas"][i]
             self.cache.set_table(slot, meta["matched"] + meta["owned"])
             self._stat_prefill_tokens += len(st.req.prompt) - grp["p_len"]
+            self.tracer.event(tr.FIRST_TOKEN, st.req.rid, slot=slot)
             self.scheduler.record_prefill(slot, int(first[i]))
 
     def _advance_chunk(self) -> None:
@@ -531,6 +670,7 @@ class ContinuousBatchingEngine:
         committed = grp["p_len"] + lo
         self._stat_chunk_steps += 1
         self.n_chunk_calls += 1
+        self._record_cost(self.cost_model.chunk(g, s_chunk, grp["tree_len"]))
         if committed == 0:
             # first chunk of an uncached prompt: it attends over its own
             # K/V like a whole-prompt prefill
@@ -548,6 +688,9 @@ class ContinuousBatchingEngine:
             nb = -(-n_valid // bs)
             self.cache.scatter_row(tree, i, meta["owned"][b0:b0 + nb],
                                    meta["prefix_blocks"] + b0, n_valid)
+            self.tracer.event(tr.PREFILL_CHUNK, st.req.rid, slot=slot,
+                              index=k, n_chunks=grp["n_chunks"],
+                              tokens=int(n_valid))
         if not final:
             # a short group admitted behind a long prefill gets the next step
             self._prefill_groups.rotate(-1)
@@ -576,6 +719,7 @@ class ContinuousBatchingEngine:
         toks, idxs, steps, temps, keys = self.scheduler.decode_batch(
             self._dummy_key)
         decoding = self.scheduler.decoding_slots()
+        live = self._live(decoding, steps)
         btoks = np.zeros((n + g, s_chunk), np.int32)
         btoks[:n, 0] = toks
         btoks[n:] = grp["toks"][:, lo:lo + s_chunk]
@@ -592,17 +736,27 @@ class ContinuousBatchingEngine:
         tables = np.concatenate([self.cache.block_tables, grp["tables"]])
         self._stat_chunk_steps += 1
         self.n_mixed_steps += 1
-        logits, self.cache.tree = self.model.mixed_step(
-            self.params, {"tokens": self._dev(btoks).long()}, self.cache.tree,
-            start, q_lens, self._dev(last_idx), self._dev(tables),
-            paged=self.paged)
+        self._record_cost(self.cost_model.mixed(n + g, s_chunk))
+        with self._phase("step.mixed_dispatch_s", "mixed_dispatch"):
+            logits, self.cache.tree = self.model.mixed_step(
+                self.params, {"tokens": self._dev(btoks).long()},
+                self.cache.tree, start, q_lens, self._dev(last_idx),
+                self._dev(tables), paged=self.paged)
+        self._device_sync(logits)
         members = [st for _, st in grp["members"]]
-        nxt = _sample(logits, list(keys) + [st.req.key for st in members],
-                      np.concatenate([steps, np.zeros(g, np.int32)]),
-                      np.concatenate([temps, np.asarray(
-                          [st.req.temperature for st in members],
-                          np.float32)]))
-        self.scheduler.record_decode(nxt[:n])
+        with self._phase("step.sample_host_s", "sample_host"):
+            nxt = _sample(logits, list(keys) + [st.req.key for st in members],
+                          np.concatenate([steps, np.zeros(g, np.int32)]),
+                          np.concatenate([temps, np.asarray(
+                              [st.req.temperature for st in members],
+                              np.float32)]))
+            self.scheduler.record_decode(nxt[:n])
+        for slot, rid, step in live:
+            self.tracer.event(tr.DECODE_STEP, rid, slot=slot, step=step)
+        for i, (slot, st) in enumerate(grp["members"]):
+            self.tracer.event(tr.PREFILL_CHUNK, st.req.rid, slot=slot,
+                              index=k, n_chunks=grp["n_chunks"],
+                              tokens=int(q_lens[n + i]))
         grp["done"] = k + 1
         if not final:
             self._prefill_groups.rotate(-1)
@@ -610,15 +764,30 @@ class ContinuousBatchingEngine:
         self._prefill_groups.popleft()
         self._finish_group(grp, nxt[n:])
 
+    def _live(self, decoding, steps):
+        """(slot, rid, step) of the DECODING rows, for their trace events:
+        taken before ``record_decode`` frees the slots that finish."""
+        if not self.tracer.enabled:
+            return []
+        return [(s, self.scheduler.slots[s].req.rid, int(steps[s]))
+                for s in decoding]
+
     def _decode_once(self) -> None:
         toks, idxs, steps, temps, keys = self.scheduler.decode_batch(
             self._dummy_key)
+        live = self._live(self.scheduler.decoding_slots(), steps)
         self.n_decode_steps += 1
+        self._record_cost(self.cost_model.decode(self.n_slots))
         tables = self.cache.tables_device() if self.block_mode else None
-        logits, self.cache.tree = self.model.decode_step(
-            self.params, self._dev(toks).long()[:, None], self.cache.tree,
-            self._dev(idxs), tables, paged=self.paged)
-        self.scheduler.record_decode(_sample(logits, keys, steps, temps))
+        with self._phase("step.decode_dispatch_s", "decode_dispatch"):
+            logits, self.cache.tree = self.model.decode_step(
+                self.params, self._dev(toks).long()[:, None], self.cache.tree,
+                self._dev(idxs), tables, paged=self.paged)
+        self._device_sync(logits)
+        with self._phase("step.sample_host_s", "sample_host"):
+            self.scheduler.record_decode(_sample(logits, keys, steps, temps))
+        for slot, rid, step in live:
+            self.tracer.event(tr.DECODE_STEP, rid, slot=slot, step=step)
 
     def _spec_once(self) -> None:
         """One self-speculative round over the DECODING slots.
@@ -645,18 +814,24 @@ class ContinuousBatchingEngine:
             # every live row is one token from its budget: plain decode
             self._decode_once()
             return
+        m = self.metrics_registry
+        live = self._live(decoding, steps)
         tables = self.cache.tables_device()
         zeros = np.zeros(n, np.int64)
         draft_toks = np.zeros((n, k_max), np.int32)
         cur = toks
-        for j in range(k_max):
-            self.n_draft_steps += 1
-            logits, self.cache.tree = self.draft_model.mixed_step(
-                self.params, {"tokens": self._dev(cur).long()[:, None]},
-                self.cache.tree, idxs + j, (k_rows > j).astype(np.int32),
-                self._dev(zeros), tables, paged=self.paged)
-            cur = _sample(logits, keys, steps + j, temps)
-            draft_toks[:, j] = cur
+        m.counter("spec.steps").inc()
+        with self._phase("spec.draft_s", "spec_draft"):
+            for j in range(k_max):
+                self.n_draft_steps += 1
+                self._record_cost(self.cost_model.draft(
+                    n, keep_slices=self.config.draft_slices))
+                logits, self.cache.tree = self.draft_model.mixed_step(
+                    self.params, {"tokens": self._dev(cur).long()[:, None]},
+                    self.cache.tree, idxs + j, (k_rows > j).astype(np.int32),
+                    self._dev(zeros), tables, paged=self.paged)
+                cur = _sample(logits, keys, steps + j, temps)
+                draft_toks[:, j] = cur
         s_v = k_max + 1
         btoks = np.zeros((n, s_v), np.int32)
         btoks[:, 0] = toks
@@ -664,24 +839,43 @@ class ContinuousBatchingEngine:
         q_lens = np.zeros(n, np.int32)
         q_lens[decoding] = k_rows[decoding] + 1
         self.n_verify_steps += 1
-        logits, self.cache.tree = self.model.verify_step(
-            self.params, {"tokens": self._dev(btoks).long()}, self.cache.tree,
-            idxs, q_lens, tables, paged=self.paged)
-        # entry (r, j) draws with (keys[r], steps[r] + j): exactly the
-        # (key, step) plain decode would use for that token
-        targets = _sample(
-            logits.reshape(n * s_v, -1), [k for k in keys for _ in range(s_v)],
-            (steps[:, None] + np.arange(s_v, dtype=np.int32)[None]).reshape(-1),
-            np.repeat(temps, s_v)).reshape(n, s_v)
+        self._record_cost(self.cost_model.verify(n, s_v))
+        with self._phase("spec.verify_s", "spec_verify"):
+            logits, self.cache.tree = self.model.verify_step(
+                self.params, {"tokens": self._dev(btoks).long()},
+                self.cache.tree, idxs, q_lens, tables, paged=self.paged)
+        self._device_sync(logits)
+        with self._phase("step.sample_host_s", "sample_host"):
+            # entry (r, j) draws with (keys[r], steps[r] + j): exactly the
+            # (key, step) plain decode would use for that token
+            targets = _sample(
+                logits.reshape(n * s_v, -1),
+                [k for k in keys for _ in range(s_v)],
+                (steps[:, None]
+                 + np.arange(s_v, dtype=np.int32)[None]).reshape(-1),
+                np.repeat(temps, s_v)).reshape(n, s_v)
         accepted: Dict[int, np.ndarray] = {}
         for s in decoding:
             a = 0
             while a < k_rows[s] and draft_toks[s, a] == targets[s, a]:
                 a += 1
             accepted[s] = targets[s, :a + 1]
-        self.spec_proposed += int(k_rows.sum())
-        self.spec_accepted += sum(len(v) - 1 for v in accepted.values())
+        proposed = int(k_rows.sum())
+        n_accepted = sum(len(v) - 1 for v in accepted.values())
+        self.spec_proposed += proposed
+        self.spec_accepted += n_accepted
+        m.counter("spec.proposed").inc(proposed)
+        m.counter("spec.accepted").inc(n_accepted)
+        m.counter("spec.tokens").inc(sum(len(v) for v in accepted.values()))
         self.scheduler.record_spec(accepted)
+        for slot, rid, step in live:
+            got = len(accepted[slot])
+            self.tracer.event(tr.SPEC_ACCEPT, rid, slot=slot,
+                              proposed=int(k_rows[slot]),
+                              accepted=got - 1, tokens=got)
+            for j in range(got):
+                self.tracer.event(tr.DECODE_STEP, rid, slot=slot,
+                                  step=step + j)
 
 
 @dataclasses.dataclass

@@ -1,8 +1,7 @@
 """Port parity: the port's ``ContinuousBatchingEngine`` (block mode, packed
 SWIS weights, paged attention) emits the same greedy tokens as the JAX
 engine on bridged params — staggered arrivals, and a shared prompt prefix
-that hits the radix cache once the first request has committed it. Also
-pins the one option the port does not serve yet: it raises."""
+that hits the radix cache once the first request has committed it."""
 import numpy as np
 import pytest
 
@@ -40,11 +39,3 @@ def test_engine_token_exact_with_prefix_hits():
                 "commits"):
         assert tstats[key] == jstats[key], key
     assert teng.n_prefill_calls > 0 and teng.n_decode_steps > 0
-
-
-def test_unported_options_raise():
-    """Metrics and tracing are the one engine option not ported yet."""
-    _, tcfg, _, tparams = bridged_smoke()
-    with pytest.raises(NotImplementedError, match="metrics"):
-        TEngine(tcfg, tparams, config=TConfig(max_len=32, enable_metrics=True),
-                device="cpu")

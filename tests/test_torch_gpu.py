@@ -308,3 +308,47 @@ def test_engine_paths_on_card_match_cpu_path(cuda_device):  # noqa: F811
                 assert pa.KERNEL.launches == cfg.n_layers * eng.arena_calls()
         for a, b in zip(*outs):
             np.testing.assert_array_equal(a, b)
+
+
+def test_engine_metrics_on_card_match_cpu_path(cuda_device):  # noqa: F811
+    """With metrics on, the card's counters (``cost.*`` included),
+    scheduler gauges, prefix stats and trace events equal the CPU path's
+    on the gather path; with the paged kernel the cost model counts no
+    gathered K/V (``paged_impl`` "cuda") and every other counter but the
+    HBM bytes still equals the CPU's."""
+    cfg = configs.get_smoke("smollm-135m").replace(
+        compute_dtype="float32", d_model=64, n_heads=4, n_kv_heads=2, d_ff=128)
+    params = pp.init_params(Model(cfg).build(), torch.Generator().manual_seed(3),
+                            device="cpu")
+    rng = np.random.default_rng(6)
+    shared = rng.integers(0, cfg.vocab, 16)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, n)])
+               for n in (5, 9)] + [rng.integers(0, cfg.vocab, 21)]
+    for paged in (False, True):
+        snaps = []
+        for dev in (cuda_device, "cpu"):
+            eng = ContinuousBatchingEngine(cfg, params, EngineConfig(
+                max_len=64, n_slots=2, packed=True, prefill_chunk=16,
+                use_paged_kernel=paged), device=dev)
+            for i, p in enumerate(prompts):
+                eng.submit(p, SamplingParams(max_tokens=6, seed=i))
+                eng.step()
+            eng.drain()
+            m = eng.metrics()
+            assert m["engine"]["counters"]["step.model_dispatches"] == \
+                eng.model_calls()
+            assert "step.device_sync_s" in m["engine"]["phases"]
+            snaps.append((m["engine"]["counters"], m["scheduler"],
+                          m["prefix_cache"], eng.paged_impl,
+                          [(e.kind, e.rid, e.fields)
+                           for e in eng.tracer.events()]))
+        (card, *card_rest), (cpu, *cpu_rest) = snaps
+        assert card_rest[:2] == cpu_rest[:2] and card_rest[3] == cpu_rest[3]
+        if not paged:
+            assert card == cpu and card_rest[2] is cpu_rest[2] is None
+            continue
+        assert (card_rest[2], cpu_rest[2]) == ("cuda", "xla")
+        assert "cost.gathered_bytes" not in card and cpu["cost.gathered_bytes"]
+        moved = {k for k in cpu if "hbm_bytes" in k or "gathered" in k}
+        assert {k: v for k, v in card.items() if k not in moved} == \
+            {k: v for k, v in cpu.items() if k not in moved}

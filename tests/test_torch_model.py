@@ -136,7 +136,8 @@ def test_logits_match_reference(variant, packed, keep_slices):
 
 def test_configs_match_reference():
     """The port's config dataclasses keep the reference's fields and
-    defaults, and smollm-135m's published widths."""
+    defaults, and each ported arch its published widths (smollm-135m,
+    phi3-mini-3.8b, deepseek-7b: the one-card dense family)."""
     import dataclasses
 
     import repro.configs.base as jbase
@@ -152,8 +153,11 @@ def test_configs_match_reference():
         for ds in (False, True):
             assert (TQuant(n_shifts=t, double_shift=ds).shift_levels()
                     == JQuant(n_shifts=t, double_shift=ds).shift_levels())
-    for getter in ("get_config", "get_smoke"):
-        jc = getattr(C, getter)("smollm-135m")
-        tc = getattr(TC, getter)("smollm-135m")
-        assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
-        assert (tc.head_dim, tc.padded_vocab) == (jc.head_dim, jc.padded_vocab)
+    assert TC.ARCH_IDS == ("phi3-mini-3.8b", "smollm-135m", "deepseek-7b")
+    for arch in TC.ARCH_IDS:
+        for getter in ("get_config", "get_smoke"):
+            jc = getattr(C, getter)(arch)
+            tc = getattr(TC, getter)(arch)
+            assert dataclasses.asdict(tc) == dataclasses.asdict(jc), arch
+            assert ((tc.head_dim, tc.padded_vocab)
+                    == (jc.head_dim, jc.padded_vocab)), arch

@@ -63,9 +63,10 @@ def bridged_smoke(seed: int = 5):
 
 
 def jax_engine(**kw):
-    """The JAX engine for EngineConfig(paged_impl="xla", **kw), one per
-    configuration and process, reset: its jit caches carry over between
-    tests, so the traffic's shapes compile once."""
+    """The JAX engine for EngineConfig(**kw), with paged_impl="xla" where
+    use_paged_kernel is set; one per configuration and process, reset: its
+    jit caches carry over between tests, so the traffic's shapes compile
+    once."""
     eng = _jax_engine(tuple(sorted(kw.items())))
     eng.reset()
     return eng
@@ -76,8 +77,11 @@ def _jax_engine(items):
     from repro.serve import ContinuousBatchingEngine, EngineConfig
 
     jcfg, _, jparams, _ = bridged_smoke()
-    return ContinuousBatchingEngine(
-        jcfg, jparams, config=EngineConfig(paged_impl="xla", **dict(items)))
+    kw = dict(items)
+    if kw.get("use_paged_kernel"):
+        kw["paged_impl"] = "xla"
+    return ContinuousBatchingEngine(jcfg, jparams,
+                                    config=EngineConfig(**kw))
 
 
 def run_waves(engine, sampling, waves):
