@@ -29,7 +29,8 @@ Phases, each fatal on failure (exit code 1, and no result line):
    with the kernels' launch counts checked against the model calls made, a
    prefix hit, and greedy tokens, at a 4-layer cut of the same packed
    weights, equal on the card and on the port's CPU path.
-5. the rest of the serve engine at full width and depth: (a) chunked
+5. the rest of the serve engine at full width, at the first 10 of the 30
+   layers of phase 4's packed weights: (a) chunked
    prefill of two 448-token prompts beside four short ones, (b) the same
    traffic through the fused mixed step, (c) speculative decode with
    2-plane drafts, (d) seeded sampling at temperature 0.8, (e) the
@@ -50,13 +51,33 @@ Phases, each fatal on failure (exit code 1, and no result line):
    turns (wall ms per step both ways, the p50 and p95 of every step phase,
    TTFT and TPOT), and at a 4-layer cut the card's counters, ``cost.*``
    values, scheduler gauges and prefix stats equal the CPU plain path's.
+7. the MoE family at full width and depth, once phases 4-6's tensors are
+   freed: qwen2-moe-a2.7b (24 layers, 60 experts top-4 padded to 64, 4
+   shared) is (a) drawn and packed one layer at a time (seconds, packed
+   GB, peak memory under the float32 tree's size); (b) the SWIS kernel's
+   expert-axis launch is held against its plain version on layer 0's
+   expert stacks at the decode shapes (rows shared by every expert, and
+   each expert's own) and a capacity-path shape, rtol 1e-5, and one
+   decode layer's 3 launches are timed beside their bound, the plain
+   version and ``torch.bmm`` over the dequantized stack; (c) phase 4's
+   traffic, 16 greedy tokens each, in block mode with paged attention:
+   10 SWIS launches a layer per model call (3 of them expert-axis), 24
+   paged launches per arena call, a prefix hit, wall and device-busy ms
+   per decode step; (d) greedy tokens at a 1-layer cut equal on the card
+   and the CPU plain path; (e) the fused step and speculative decode on
+   (c)'s traffic, launches checked, tokens equal on a fresh engine and, at
+   the 1-layer cut, to the CPU plain path's (draft counts too). Their
+   tokens are not held to (c)'s: multi-token launches take the capacity
+   path, which routes pad rows and drops over-capacity choices.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (each
-kernel's launches summed over the paths of phases 4 to 6, and by path);
-the last is ``{"ok": true, "device": {...}}``.
+kernel's launches summed over the paths of phases 4 to 7, and by path; the
+SWIS row also carries the expert-axis launch's own numbers); the last is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -68,6 +89,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 N_SHIFTS, GROUP = 4, 4
 DRAFT_SLICES = 2  # planes the speculative draft keeps (path c)
+PATHS_LAYERS = 10  # phase 5's depth: the first 10 of smollm-135m's 30 layers
 # tests/test_kernels.py SWEEP: (M, K, N, group, n_shifts, x dtype name)
 KERNEL_SWEEP = [(8, 128, 128, 4, 2, "float32"), (16, 256, 256, 8, 3, "float32"),
                 (32, 512, 128, 4, 4, "float32"), (8, 64, 256, 16, 5, "float32"),
@@ -126,6 +148,28 @@ def cuda_ms(fn, iters=100, warmup=10):
                       getattr(e, "self_cuda_time_total", 0.0))
     TIMING_SOURCE.add("profiler" if us > 0 else "events")
     return us / 1e3 / iters if us > 0 else event_ms
+
+
+def event_ms(fn, iters=20, warmup=3):
+    """Mean device time of one ``fn()`` in ms from CUDA events around
+    ``iters`` back-to-back calls, enqueued behind a kernel that spins for
+    about 0.1 s: the host enqueues every launch before the first runs, so
+    its time between launches does not count (``fn`` must not
+    synchronize)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # clock cycles
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes, flops):
@@ -799,8 +843,8 @@ def same_tokens(label, got, want, traffic, models):
 def paths_phase(dev, card, kernels, cfg, params):
     """Paths (a) chunked prefill, (b) the fused mixed step, (c) speculative
     decode, (d) seeded sampling and (e) the contiguous mode and
-    ``DecodeEngine``, at full smollm-135m width and depth on the card
-    (``params``: the packed weights of phase 4). Each path's launches are
+    ``DecodeEngine``, at full smollm-135m width on the card (``params``:
+    phase 4's packed weights, at the depth ``cfg`` gives). Each path's launches are
     counted from 0 and held against its engine's model calls; (a)-(c)
     against the plain decode path's tokens on the card; a profiled repeat
     run gives the device time and the same tokens; and every path at a
@@ -1149,6 +1193,309 @@ def observability_phase(dev, card, kernels, cfg, params):
     return by_path
 
 
+# -- phase 7: the MoE family at full width --------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_PER_LAYER = 10  # SWIS launches a layer: q/k/v/o, 3 shared, 3 expert stacks
+
+
+def tree_bytes(tree):
+    from repro_torch.models import params as pp
+
+    sizes = []
+    pp.tree_map(lambda a: sizes.append(a.numel() * a.element_size()), tree)
+    return sum(sizes)
+
+
+def moe_init(dev, card):
+    """(a) qwen2-moe-a2.7b at its published widths and depth, random
+    weights from a seed, drawn and SWIS-packed one layer at a time on the
+    card: the float32 tree (~60 GB) never exists whole."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.swis import QuantConfig
+    from repro_torch.models import params as pp
+    from repro_torch.models.model import Model
+    from repro_torch.serve.quantized import init_packed_params
+
+    cfg = configs.get_config(MOE_ARCH).replace(compute_dtype="float32")
+    qcfg = QuantConfig(method="swis", n_shifts=N_SHIFTS, group_size=GROUP)
+    tree = Model(cfg).build()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, stats = init_packed_params(
+        tree, qcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fp32 = pp.count_params(tree) * 4
+    blocks = tree_bytes(params["blocks"])
+    total = tree_bytes(params)
+    print(f"phase 7 (a): {MOE_ARCH} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+          f"padded to {cfg.moe.e_total}, expert d_ff {cfg.moe.d_ff_expert}, "
+          f"{cfg.moe.n_shared} shared) drawn and packed layer by layer on "
+          f"{card} in {secs:.1f} s: {stats['n_packed']} stacked GEMM leaves, "
+          f"layers {blocks / 1e9:.3f} GB packed, {total / 1e9:.3f} GB with "
+          f"the float32 embeddings (float32 tree {fp32 / 1e9:.3f} GB); "
+          f"max_memory_allocated {peak / 1e9:.3f} GB")
+    check(peak < fp32, f"peak memory {peak / 1e9:.1f} GB: the float32 tree "
+          f"({fp32 / 1e9:.1f} GB) must never be built whole")
+    return cfg, qcfg, params
+
+
+def expert_phase(dev, card, params, cfg):
+    """(b) The expert-axis launch against its plain version (dequant then
+    einsum) on layer 0's packed expert stacks: decode (M = 4, the rows
+    shared by every expert for wi and wg, each expert's own rows for wo)
+    and the capacity path's per-expert rows (M = g * cap of the phase-(c)
+    prefill: 256 tokens, cap 21), within rtol 1e-5 and atol 1e-5*max|ref|;
+    then one decode layer's 3 launches timed beside their bound, the plain
+    version and ``torch.bmm`` over the dequantized float32 stack (a
+    yardstick: the port never calls it), by CUDA events with the launches
+    queued behind a spin kernel and, for comparison, from a profiler
+    trace; and the layer's 7 other SWIS GEMMs, to hold the layer's sum
+    against the in-engine breakdown of (c)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import packed_weight as packed_weight_of
+    from repro_torch.serve.quantized import dequant_leaf
+
+    moe = params["blocks"]["sub0_moe"]["moe"]
+    e = cfg.moe.e_total
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    cap = max(int(4 * 64 * cfg.moe.top_k * cfg.moe.capacity_factor
+                  / cfg.moe.n_experts), 1)
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = [  # (label, leaf, x: (M, K) shared or (E, M, K))
+        ("decode wi", "wi", torch.randn((4, d), generator=g, device=dev)),
+        ("decode wg", "wg", torch.randn((4, d), generator=g, device=dev)),
+        ("decode wo", "wo", torch.randn((e, 4, f), generator=g, device=dev)),
+        (f"capacity wi (M {cap})", "wi",
+         torch.randn((e, cap, d), generator=g, device=dev)),
+    ]
+    err = 0.0
+    ms = plain_ms = lib_ms = bound_ms = 0.0
+    per, profiled = [], []
+    for label, name, x in cases:
+        leaf = {k: v[0] for k, v in moe[name].items()}  # layer 0's stack
+        xe = x if x.ndim == 3 else x[None].expand(e, *x.shape)
+        got = ops.swis_matmul_experts(x, leaf)
+        want = ref.swis_matmul_experts_ref(
+            xe, leaf["sign_plane"], leaf["mask_planes"], leaf["shifts"],
+            leaf["scale"], group=GROUP)
+        torch.cuda.synchronize()
+        top = want.abs().max().item()
+        e_max = (got - want).abs().max().item()
+        err = max(err, e_max)
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-5 * top),
+              f"expert launch {label}: max|err|={e_max:.3g} vs "
+              f"max|ref|={top:.3g}")
+        if not label.startswith("decode"):
+            continue
+        w = dequant_leaf(leaf)  # the dense float32 stack
+        profiled.append((cuda_ms(lambda: ops.swis_matmul_experts(x, leaf),
+                                 iters=50),
+                         cuda_ms(lambda: torch.bmm(xe, w), iters=50)))
+        t = event_ms(lambda: ops.swis_matmul_experts(x, leaf))
+        t_lib = event_ms(lambda: torch.bmm(xe, w))
+        del w
+        plain_ms += cuda_ms(lambda: ref.swis_matmul_experts_ref(
+            xe, leaf["sign_plane"], leaf["mask_planes"], leaf["shifts"],
+            leaf["scale"], group=GROUP), iters=3, warmup=1)
+        m, k = xe.shape[1:]
+        n = leaf["sign_plane"].shape[-1]
+        nbytes = (x.numel() * 4 + tree_bytes(leaf) + e * m * n * 4)
+        b, by = bound(nbytes, 2 * e * m * k * n)
+        ms += t
+        lib_ms += t_lib
+        bound_ms += b
+        per.append(f"{label} {t * 1e3:.1f}/{t_lib * 1e3:.1f}/{b * 1e3:.1f}")
+    print(f"phase 7 (b): expert launch against its plain version on layer "
+          f"0's stacks (E {e}): decode wi/wg (M 4, shared rows), wo (M 4, "
+          f"rows per expert), capacity wi (M {cap}, rows per expert); "
+          f"max|err| {err:.3g} (rtol 1e-5, atol 1e-5*max|ref|)")
+    print(f"expert launch, one decode layer's 3 stacks on {card} (CUDA "
+          f"events, launches queued behind a spin kernel): kernel "
+          f"{ms:.4f} ms, torch.bmm over the dequantized float32 stack "
+          f"{lib_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({by}); per stack kernel/bmm/bound us: " + ", ".join(per))
+    # the same launches summed from a profiler trace, the card's copy rate
+    # over the bytes of one stack, and the layer's other 7 SWIS GEMMs (the
+    # attention's 4, the shared experts' 3) at M = 4
+    src = torch.empty(tree_bytes({k: v[0] for k, v in moe["wi"].items()}),
+                      dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy = event_ms(lambda: dst.copy_(src))
+    print(f"  from the profiler's trace instead, us per stack kernel/bmm: "
+          + ", ".join(f"{a * 1e3:.1f}/{b * 1e3:.1f}" for a, b in profiled)
+          + f"; a device copy of one stack's {src.numel() / 1e6:.1f} MB "
+          f"takes {copy * 1e3:.1f} us ({2 * src.numel() / copy / 1e6:.0f} "
+          f"GB/s read + write)")
+    del src, dst
+    blk = params["blocks"]["sub0_moe"]
+    dense2d = [blk["attn"][n]["w"] for n in ("wq", "wk", "wv", "wo")] + [
+        moe[n] for n in ("shared_wi", "shared_wg", "shared_wo")]
+    t2d = []
+    for leaf in dense2d:
+        pw = packed_weight_of({k: v[0] for k, v in leaf.items()}, cfg)
+        x = torch.randn((4, pw.k), generator=g, device=dev)
+        t2d.append(event_ms(lambda: ops.swis_matmul(x, pw)))
+    print(f"  the layer's 7 other SWIS GEMMs at M=4 (q/k/v/o 2048x2048, "
+          f"shared 2048x5632 x2, 5632x2048), us: "
+          + ", ".join(f"{t * 1e3:.1f}" for t in t2d) + f"; a decode "
+          f"layer's 10 SWIS launches {(ms + sum(t2d)):.4f} ms, x "
+          f"{cfg.n_layers} layers {(ms + sum(t2d)) * cfg.n_layers:.3f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+
+
+def moe_counts(label, engine, kernels, cfg, experts0):
+    """Launches since the last reset against the engine's model calls:
+    10 SWIS a layer per model call, 3 of them expert-axis launches (the
+    entry's count was ``experts0`` at the reset), and one paged launch a
+    layer per arena call. Returns (launches by kernel, model calls,
+    expert-axis launches)."""
+    counts = {kern.name: kern.launches for kern in kernels}
+    n_exp = (kernels[0].entry_launches["swis_matmul_experts_launch"]
+             - experts0)
+    calls, arena_calls = engine.model_calls(), engine.arena_calls()
+    check_dispatches(label, engine)
+    per_call = MOE_PER_LAYER * cfg.n_layers
+    check(counts["swis_matmul"] == per_call * calls,
+          f"{label}: swis_matmul launches {counts['swis_matmul']} != "
+          f"{per_call} x {calls} model calls")
+    check(n_exp == 3 * cfg.n_layers * calls, f"{label}: {n_exp} expert-axis "
+          f"launches != 3 x {cfg.n_layers} x {calls} model calls")
+    check(counts["paged_attention"] == cfg.n_layers * arena_calls,
+          f"{label}: paged_attention launches {counts['paged_attention']} != "
+          f"{cfg.n_layers} x {arena_calls} arena calls")
+    return counts, calls, n_exp
+
+
+def moe_phase(dev, card, kernels):
+    """Phase 7: qwen2-moe-a2.7b at full width and 24 layers on the card.
+    (a) init and pack layer by layer; (b) the expert-axis launch against
+    its plain version and timed; (c) 8 requests of 64 prompt tokens (4
+    sharing a 32-token prefix), 16 greedy tokens each, on 4 slots, block
+    mode with paged attention, launches checked per model call, a prefix
+    hit, wall and device-busy ms per decode step; (d) greedy tokens at a
+    1-layer cut of the same packed weights equal on the card and the CPU
+    plain path (2 requests, 8 tokens); (e) the fused step (chunk 32) and
+    speculative decode (spec_k 3, 2 of 4 planes) on (c)'s traffic with
+    their launches checked, each held to the same path on the CPU plain
+    path at the 1-layer cut (tokens, and the draft counts). Returns (the
+    launches by path, the expert launch's timing)."""
+    import torch
+    from repro_torch.serve import ContinuousBatchingEngine, EngineConfig
+
+    cfg, qcfg, params = moe_init(dev, card)
+    perf = expert_phase(dev, card, params, cfg)
+
+    # (c) serving at full width and depth
+    base = dict(n_slots=4, block_size=8, packed=True, quant_cfg=qcfg,
+                use_paged_kernel=True, max_len=96)
+    eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**base),
+                                   device=dev)
+    reqs = prompts(cfg.vocab)
+    for kern in kernels:
+        kern.launches = 0
+    experts0 = kernels[0].entry_launches["swis_matmul_experts_launch"]
+    toks, pre, dec = serve(eng, reqs, 16)
+    counts, calls, n_exp = moe_counts("7 (c)", eng, kernels, cfg, experts0)
+    perf["launches"] = {"7 (c)": n_exp}
+    by_path = {"7 (c) qwen2-moe block engine": counts}
+    stats = eng.prefix_stats()
+    check(stats["hits"] >= 1, "7 (c): no admission hit the prefix cache")
+    for t in toks:
+        check(len(t) == 16 and int(t.min()) >= 0 and int(t.max()) < cfg.vocab,
+              f"7 (c): bad token output {t}")
+    dec_ms = 1e3 * sum(dt for dt, _ in dec) / len(dec)
+    print(f"phase 7 (c) on {card}: {eng.n_prefill_calls} prefill calls, "
+          f"{eng.n_decode_steps} decode steps; launches {counts} ({n_exp} of "
+          f"them expert-axis) = {MOE_PER_LAYER} x {cfg.n_layers} SWIS per "
+          f"model call and {cfg.n_layers} paged per arena call; prefix "
+          f"cache {stats['hits']} hits of {stats['lookups']} lookups; "
+          f"prefill steps {len(pre)} at {1e3 * sum(pre) / len(pre):.1f} "
+          f"ms/step, decode-only steps {len(dec)} at {dec_ms:.2f} ms/step")
+    breakdown(eng, reqs[:4])
+    del eng
+
+    # (d) and (e)'s CPU checks: a 1-layer cut, 2 requests of 8 tokens
+    cfg1, cut, cut_cpu = layer_cut(cfg, params, n_layers=1)
+    short = [(p, 8) for p in reqs[:2]]
+    t0 = time.perf_counter()
+    got = drive(ContinuousBatchingEngine(cfg1, cut, EngineConfig(**base),
+                                         device=dev), short)[0]
+    cpu = ContinuousBatchingEngine(cfg1, cut_cpu, EngineConfig(**base),
+                                   device="cpu")
+    want = drive(cpu, short)[0]
+    same_tokens("7 (d) 1-layer cut vs the CPU plain path", got, want, short,
+                [("card", cpu.model, cut, dev),
+                 ("cpu", cpu.model, cut_cpu, "cpu")])
+    print(f"phase 7 (d): greedy tokens at a 1-layer cut (2 requests, 8 "
+          f"tokens) equal on the card and the CPU plain path (CPU "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    # (e) the fused step and speculative decode at full width and depth;
+    # their CPU checks at the 1-layer cut take 4 tokens
+    traffic = [(p, 16) for p in reqs]
+    short = [(p, 4) for p in reqs[:2]]
+    paths = [("7 (e) fused", dict(prefill_chunk=32, fused_step=True)),
+             ("7 (e) spec", dict(spec_decode=True, spec_k=3,
+                                 draft_slices=DRAFT_SLICES))]
+    for label, opts in paths:
+        ecfg = EngineConfig(**{**base, **opts})
+        eng = ContinuousBatchingEngine(cfg, params, ecfg, device=dev)
+        for kern in kernels:
+            kern.launches = 0
+        experts0 = kernels[0].entry_launches["swis_matmul_experts_launch"]
+        got, steps, wall, _ = drive(eng, traffic)
+        counts, calls, n_exp = moe_counts(label, eng, kernels, cfg, experts0)
+        perf["launches"][label] = n_exp
+        # a fresh engine repeats the tokens: repeated arena writes carry
+        # their last values, so pad and idle rows, which read the trash
+        # block and are routed, route alike (after reset() the stale trash
+        # block, left in place as in the reference, would route them anew)
+        again = ContinuousBatchingEngine(cfg, params, ecfg, device=dev)
+        same_tokens(f"{label} on a fresh engine", drive(again, traffic)[0],
+                    got, traffic, [])
+        del again
+        by_path[label] = counts
+        same = sum(bool((a == b).all()) for a, b in zip(got, toks))
+        extra = ""
+        if eng.spec_decode:
+            extra = (f"; spec accepted {eng.spec_accepted} of "
+                     f"{eng.spec_proposed} drafts")
+        # the same path at the 1-layer cut, on the card and the CPU
+        t0 = time.perf_counter()
+        card1 = ContinuousBatchingEngine(cfg1, cut, ecfg, device=dev)
+        got1 = drive(card1, short)[0]
+        cpu1 = ContinuousBatchingEngine(cfg1, cut_cpu, ecfg, device="cpu")
+        want1 = drive(cpu1, short)[0]
+        same_tokens(f"{label} (1-layer cut) vs the CPU plain path", got1,
+                    want1, short, [("card", cpu1.model, cut, dev),
+                                   ("cpu", cpu1.model, cut_cpu, "cpu")])
+        spec = ((card1.spec_proposed, card1.spec_accepted),
+                (cpu1.spec_proposed, cpu1.spec_accepted))
+        check(spec[0] == spec[1], f"{label} (1-layer cut): drafts (proposed, "
+              f"accepted) {spec[0]} on the card, {spec[1]} on the CPU")
+        print(f"phase {label} on {card}: {steps} steps at {wall:.2f} ms/step "
+              f"wall, {calls} model calls (mixed {eng.n_mixed_steps}, draft "
+              f"{eng.n_draft_steps}, verify {eng.n_verify_steps}); launches "
+              f"{counts}{extra}; tokens equal on a fresh engine; {same} of "
+              f"{len(toks)} requests' tokens equal to (c)'s plain decode path "
+              f"(multi-token launches take the capacity path); at the "
+              f"1-layer cut (2 requests, 4 tokens) tokens"
+              f"{' and drafts ' + str(spec[0]) if eng.spec_decode else ''} "
+              f"equal to the CPU plain path's (CPU "
+              f"{time.perf_counter() - t0:.1f} s)")
+        del eng, card1
+    del cut, cut_cpu, params
+    return by_path, perf
+
+
 def main() -> int:
     try:
         import torch
@@ -1195,23 +1542,41 @@ def main() -> int:
         for name, err in dense_family_phase(dev, card).items():
             perf[name]["max_abs_err"] = max(perf[name]["max_abs_err"], err)
         elapsed = {"3": t1 - t0, "3 dense shapes": time.perf_counter() - t1}
+        print(f"[phase 3 done: {elapsed['3']:.1f} + {elapsed['3 dense shapes']:.1f} s]")
 
         # 4. the first slice's path at full width
         t0 = time.perf_counter()
         counts, gpu = slice_phase(dev, card, kernels)
         elapsed["4"] = time.perf_counter() - t0
+        print(f"[phase 4 done: {elapsed['4']:.1f} s]")
 
-        # 5. the rest of the serve engine at full width
+        # 5. the rest of the serve engine at full width, at 10 of the 30
+        # layers (the host's time per model call follows the depth, and
+        # phase 7 needs the room)
         t0 = time.perf_counter()
         by_path = {"phase 4 greedy block engine": counts}
-        by_path.update(paths_phase(dev, card, kernels, gpu.cfg, gpu.params))
+        cfg10, params10, _ = layer_cut(gpu.cfg, gpu.params, PATHS_LAYERS)
+        by_path.update(paths_phase(dev, card, kernels, cfg10, params10))
+        del params10
         elapsed["5"] = time.perf_counter() - t0
+        print(f"[phase 5 done: {elapsed['5']:.1f} s]")
 
         # 6. observability and the launcher at full width
         t0 = time.perf_counter()
         by_path.update(observability_phase(dev, card, kernels, gpu.cfg,
                                            gpu.params))
         elapsed["6"] = time.perf_counter() - t0
+        print(f"[phase 6 done: {elapsed['6']:.1f} s]")
+
+        # 7. the MoE family at full width, once phases 4-6's tensors are freed
+        del gpu
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        moe_paths, experts = moe_phase(dev, card, kernels)
+        by_path.update(moe_paths)
+        elapsed["7"] = time.perf_counter() - t0
+        print(f"[phase 7 done: {elapsed['7']:.1f} s]")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1233,6 +1598,14 @@ def main() -> int:
                      "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
                      "bound_by": p["bound_by"], "library_ms": p["library_ms"],
                      "timed": p["timed"]})
+    rows[0]["expert_launch"] = {
+        **{k: experts[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "max_abs_err")},
+        "launches": sum(experts["launches"].values()),
+        "launches_by_path": experts["launches"],
+        "timed": (f"one {MOE_ARCH} decode layer's 3 expert stacks (E 64) at "
+                  f"M=4, fp32 x, by CUDA events behind a spin kernel; "
+                  f"library: torch.bmm over the dequantized float32 stack")}
     print(f"kernel times from: {sorted(TIMING_SOURCE)}; "
           f"total {time.perf_counter() - t_start:.1f} s on {card} (phases "
           + ", ".join(f"{k} {v:.1f} s" for k, v in elapsed.items()) + ")")

@@ -1,6 +1,7 @@
 """Architecture registry of the port: ``get_config('<arch-id>')`` returns the
 exact published config, ``get_smoke('<arch-id>')`` the reduced same-family
-smoke config. Only the architectures the port serves so far are listed."""
+smoke config. Only the architectures the port serves so far are listed
+(the dense family and the MoE family)."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +15,8 @@ _MODULES = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "smollm-135m": "smollm_135m",
     "deepseek-7b": "deepseek_7b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "dbrx-132b": "dbrx_132b",
 }
 
 ARCH_IDS = tuple(_MODULES)

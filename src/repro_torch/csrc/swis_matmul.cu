@@ -16,6 +16,16 @@
 //           or one offset byte per group for SWIS-C
 //   scale   (N,) fp32
 //
+// The expert-axis launch (swis_matmul_experts_launch) runs E such products in
+// one grid, out[e] (M, N) = x[e] @ dequant(planes[e]) for the stacked expert
+// weights of a MoE layer: every operand above gains a leading E axis, and x[e]
+// lies x_estride elements after x[e-1]; a stride of 0 gives every expert the
+// same rows (decode's wi and wg read the same tokens for all experts). Its
+// JAX counterpart is no Pallas kernel but a dequantized copy and an einsum
+// (src/repro/models/moe.py, _quant and moe_apply); here the expert GEMMs read
+// only the packed bytes. The expert index is folded into blockIdx.z beside
+// the row tiles, so a layer's expert stack is one launch.
+//
 // What bounds it on an H100: at decode (M <= 8) the least time is the packed
 // weight bytes over the memory rate, about 1.1 bytes a weight at 4 planes and
 // group 4, so a 576 x 576 GEMM could take well under a microsecond. What a
@@ -50,6 +60,12 @@
 // spilled, and left room for one block per SM (so a second wave at N = 1536);
 // and clusters of 6 blocks fit the GPCs badly. Hence the staging in one round
 // trip, the rebuild four weights at a time and power-of-two clusters.
+// The expert-axis launch at qwen2-moe-a2.7b's decode shapes (E 64, M 4,
+// 2048 x 1408 and 1408 x 2048; same card) takes 0.47-0.49 ms a stack against
+// a 0.0625 ms byte bound and 0.24 ms for torch.bmm over the dequantized fp32
+// stack: with K = 2048 and 2816 blocks there is no K split, and each block
+// keeps one round of plane loads in flight between barriers, too few bytes
+// to fill the card (a device copy of the same 208 MB runs at ~3 TB/s).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -78,6 +94,8 @@ struct Args {
   const float* scale;
   float* out;
   int M, K, N, group, first, consecutive, shift_bytes;
+  int m_tiles;           // row tiles of one expert: blockIdx.z = expert * m_tiles + tile
+  long long x_estride;   // elements from x[e] to x[e + 1]; 0: the experts share x
   int words_per_block;   // 32-weight words of K per cluster rank
   int groups_per_round;  // most groups one round of KC can touch
   int shifts_u32;        // 1: every group row of 32 columns starts 4-byte aligned
@@ -118,10 +136,18 @@ __global__ void __launch_bounds__(THREADS, 2) swis_matmul_kernel(const Args a) {
   const int warp = threadIdx.x / BN;
   const int n0 = blockIdx.y * BN;
   const int n = n0 + lane;
-  const int m0 = blockIdx.z * BM;
+  const int expert = blockIdx.z / a.m_tiles;
+  const int m0 = (blockIdx.z - expert * a.m_tiles) * BM;
   const int N = a.N, K = a.K, KW = K / 32;
   const bool col_ok = n < N;
-  const XT* x = (const XT*)a.x;
+  // this expert's operands (expert 0 alone in the 2-D launch)
+  const size_t plane = (size_t)KW * N;  // words of one bit-plane
+  const XT* x = (const XT*)a.x + (size_t)expert * a.x_estride;
+  const uint32_t* sign = a.sign + expert * plane;
+  const uint32_t* masks = a.masks + expert * NS * plane;
+  const uint8_t* shifts = a.shifts + (size_t)expert * (K / a.group) * N * a.shift_bytes;
+  const float* scale = a.scale + (size_t)expert * N;
+  float* out = a.out + (size_t)expert * a.M * N;
   const int kw_begin = rank * a.words_per_block;
   const int kw_end = min(KW, kw_begin + a.words_per_block);
 
@@ -144,10 +170,10 @@ __global__ void __launch_bounds__(THREADS, 2) swis_matmul_kernel(const Args a) {
 #pragma unroll
     for (int j = 0; j < NS; ++j) mw[j] = 0u;
     if (has_word) {
-      s_word = __ldg(a.sign + (size_t)kw * N + n);
+      s_word = __ldg(sign + (size_t)kw * N + n);
 #pragma unroll
       for (int j = 0; j < NS; ++j)
-        if (j >= a.first) mw[j] = __ldg(a.masks + ((size_t)j * KW + kw) * N + n);
+        if (j >= a.first) mw[j] = __ldg(masks + ((size_t)j * KW + kw) * N + n);
     }
 
     if (kw0 != kw_begin) __syncthreads();  // the previous round is done with xs and shs
@@ -163,7 +189,7 @@ __global__ void __launch_bounds__(THREADS, 2) swis_matmul_kernel(const Args a) {
     const int ng = (k0 + nw * 32 - 1) / a.group - g_lo + 1;
     const int row_bytes = BN * a.shift_bytes;
     const int valid_bytes = min(BN, N - n0) * a.shift_bytes;
-    const uint8_t* src = a.shifts + ((size_t)g_lo * N + n0) * a.shift_bytes;
+    const uint8_t* src = shifts + ((size_t)g_lo * N + n0) * a.shift_bytes;
     const size_t src_stride = (size_t)N * a.shift_bytes;
     const int per = row_bytes / 4;  // shift words per group row
     const int n_sh = a.shifts_u32 ? ng * per : 0;
@@ -269,14 +295,14 @@ __global__ void __launch_bounds__(THREADS, 2) swis_matmul_kernel(const Args a) {
       for (int q = 1; q < cs; ++q) v += red[q * BM * BN + e];
       const int m = m0 + e / BN;
       const int nn = n0 + e % BN;
-      if (m < a.M && nn < N) a.out[(size_t)m * N + nn] = v * a.scale[nn];
+      if (m < a.M && nn < N) out[(size_t)m * N + nn] = v * scale[nn];
     }
   }
 }
 
 template <typename XT, int NS, int BM>
-int launch(const Args& a, int cs, cudaStream_t st) {
-  const dim3 grid(cs, (a.N + BN - 1) / BN, (a.M + BM - 1) / BM);
+int launch(const Args& a, int n_experts, int cs, cudaStream_t st) {
+  const dim3 grid(cs, (a.N + BN - 1) / BN, a.m_tiles * n_experts);
   const size_t smem = sizeof(float) * (BM * KC + MAX_CLUSTER * BM * BN) +
                       (size_t)a.groups_per_round * BN * a.shift_bytes;
   auto kern = swis_matmul_kernel<XT, NS, BM>;
@@ -303,25 +329,25 @@ int launch(const Args& a, int cs, cudaStream_t st) {
 }
 
 template <typename XT, int BM>
-int launch_ns(const Args& a, int n_shifts, int cs, cudaStream_t st) {
+int launch_ns(const Args& a, int n_shifts, int n_experts, int cs, cudaStream_t st) {
   switch (n_shifts) {
-    case 1: return launch<XT, 1, BM>(a, cs, st);
-    case 2: return launch<XT, 2, BM>(a, cs, st);
-    case 3: return launch<XT, 3, BM>(a, cs, st);
-    case 4: return launch<XT, 4, BM>(a, cs, st);
-    case 5: return launch<XT, 5, BM>(a, cs, st);
-    case 6: return launch<XT, 6, BM>(a, cs, st);
-    case 7: return launch<XT, 7, BM>(a, cs, st);
-    case 8: return launch<XT, 8, BM>(a, cs, st);
+    case 1: return launch<XT, 1, BM>(a, n_experts, cs, st);
+    case 2: return launch<XT, 2, BM>(a, n_experts, cs, st);
+    case 3: return launch<XT, 3, BM>(a, n_experts, cs, st);
+    case 4: return launch<XT, 4, BM>(a, n_experts, cs, st);
+    case 5: return launch<XT, 5, BM>(a, n_experts, cs, st);
+    case 6: return launch<XT, 6, BM>(a, n_experts, cs, st);
+    case 7: return launch<XT, 7, BM>(a, n_experts, cs, st);
+    case 8: return launch<XT, 8, BM>(a, n_experts, cs, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename XT>
-int launch_bm(const Args& a, int n_shifts, int bm, int cs, cudaStream_t st) {
-  if (bm == 4) return launch_ns<XT, 4>(a, n_shifts, cs, st);
-  if (bm == 8) return launch_ns<XT, 8>(a, n_shifts, cs, st);
-  return launch_ns<XT, 32>(a, n_shifts, cs, st);
+int launch_bm(const Args& a, int n_shifts, int bm, int n_experts, int cs, cudaStream_t st) {
+  if (bm == 4) return launch_ns<XT, 4>(a, n_shifts, n_experts, cs, st);
+  if (bm == 8) return launch_ns<XT, 8>(a, n_shifts, n_experts, cs, st);
+  return launch_ns<XT, 32>(a, n_shifts, n_experts, cs, st);
 }
 
 int sm_count() {
@@ -335,21 +361,22 @@ int sm_count() {
   return count;
 }
 
-}  // namespace
-
-// x_dtype: 0 = fp32, 1 = bf16; x must be 16-byte aligned. Launches once on
-// `stream` and returns cudaGetLastError().
-extern "C" int swis_matmul_launch(int x_dtype, const void* x, const void* sign,
-                                  const void* masks, const void* shifts, const void* scale,
-                                  void* out, int M, int K, int N, int group, int n_shifts,
-                                  int first, int consecutive, int shift_bytes, void* stream) {
+// Both entry points: n_experts products of one shape, x[e] x_estride elements
+// apart (16-byte aligned), every other operand stacked back to back.
+int launch_experts(int x_dtype, const void* x, long long x_estride, const void* sign,
+                   const void* masks, const void* shifts, const void* scale, void* out,
+                   int n_experts, int M, int K, int N, int group, int n_shifts, int first,
+                   int consecutive, int shift_bytes, void* stream) {
   if (n_shifts < 1 || n_shifts > MAX_SHIFTS || first < 0 || first >= n_shifts ||
       K % 32 != 0 || group < 1 || K % group != 0 || M < 1 || N < 1 || shift_bytes < 1 ||
-      shift_bytes > 4 || ((uintptr_t)x & 15u) != 0)
+      shift_bytes > 4 || n_experts < 1 || x_estride < 0 || ((uintptr_t)x & 15u) != 0 ||
+      (x_estride * (x_dtype == 0 ? 4 : 2)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const int bm = M <= 4 ? 4 : M <= 8 ? 8 : 32;
   const int KW = K / 32;
-  const int tiles = ((N + BN - 1) / BN) * ((M + bm - 1) / bm);
+  const int m_tiles = (M + bm - 1) / bm;
+  if ((long long)m_tiles * n_experts > 65535) return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)((N + BN - 1) / BN) * m_tiles * n_experts;
   // the cluster splits K: a power of two, at most one round of words per
   // block, and no more blocks than about two per SM
   int cs = 1;
@@ -368,11 +395,39 @@ extern "C" int swis_matmul_launch(int x_dtype, const void* x, const void* sign,
   a.first = first;
   a.consecutive = consecutive;
   a.shift_bytes = shift_bytes;
+  a.m_tiles = m_tiles;
+  a.x_estride = x_estride;
   a.words_per_block = (KW + cs - 1) / cs;
   a.groups_per_round = (KC - 1) / group + 2;
   a.shifts_u32 = ((size_t)N * shift_bytes) % 4 == 0 && ((uintptr_t)shifts & 3u) == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (x_dtype == 0) return launch_bm<float>(a, n_shifts, bm, cs, st);
-  if (x_dtype == 1) return launch_bm<__nv_bfloat16>(a, n_shifts, bm, cs, st);
+  if (x_dtype == 0) return launch_bm<float>(a, n_shifts, bm, n_experts, cs, st);
+  if (x_dtype == 1) return launch_bm<__nv_bfloat16>(a, n_shifts, bm, n_experts, cs, st);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// x_dtype: 0 = fp32, 1 = bf16; x must be 16-byte aligned. Launches once on
+// `stream` and returns cudaGetLastError().
+extern "C" int swis_matmul_launch(int x_dtype, const void* x, const void* sign,
+                                  const void* masks, const void* shifts, const void* scale,
+                                  void* out, int M, int K, int N, int group, int n_shifts,
+                                  int first, int consecutive, int shift_bytes, void* stream) {
+  return launch_experts(x_dtype, x, 0, sign, masks, shifts, scale, out, 1, M, K, N, group,
+                        n_shifts, first, consecutive, shift_bytes, stream);
+}
+
+// The expert-axis launch: out (E, M, N) fp32, out[e] = x[e] @ dequant(planes[e]),
+// with sign (E, K/32, N), masks (E, n_shifts, K/32, N), shifts
+// (E, K/group, N, shift_bytes), scale (E, N); x[e] starts x_estride elements
+// after x[e-1] (0: one x for every expert) and must be 16-byte aligned.
+extern "C" int swis_matmul_experts_launch(int x_dtype, const void* x, long long x_estride,
+                                          const void* sign, const void* masks,
+                                          const void* shifts, const void* scale, void* out,
+                                          int n_experts, int M, int K, int N, int group,
+                                          int n_shifts, int first, int consecutive,
+                                          int shift_bytes, void* stream) {
+  return launch_experts(x_dtype, x, x_estride, sign, masks, shifts, scale, out, n_experts, M,
+                        K, N, group, n_shifts, first, consecutive, shift_bytes, stream);
 }

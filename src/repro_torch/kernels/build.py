@@ -10,6 +10,7 @@ have no ``nvcc``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -40,13 +41,15 @@ class Kernel:
 
     ``signatures`` maps each C entry point to its ``ctypes`` argument types;
     every entry returns ``cudaGetLastError()`` as an int. ``launches`` is
-    raised by one at each launch by the Python wrapper, and nowhere else.
+    raised by one at each launch by the Python wrapper, and nowhere else;
+    ``entry_launches`` counts the same launches by entry point.
     """
 
     def __init__(self, name: str, signatures: Dict[str, list]):
         self.name = name
         self.signatures = signatures
         self.launches = 0
+        self.entry_launches = collections.Counter()
         self.build_log = ""
         self.build_seconds: Optional[float] = None
         self._lib = None
@@ -98,6 +101,7 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.name}.{fn} failed: CUDA error {err}")
         self.launches += 1
+        self.entry_launches[fn] += 1
 
 
 def build(kernels: Iterable[Kernel]) -> List[Kernel]:

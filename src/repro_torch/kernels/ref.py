@@ -4,6 +4,9 @@ Each function computes what its CUDA kernel computes, from the same
 operands, with the reference package's arithmetic:
 
 * :func:`dequant_ref` / :func:`swis_matmul_ref` — ``repro.kernels.ref``;
+* :func:`swis_matmul_experts_ref` — the reference's MoE expert GEMM
+  (``repro.models.moe``): every expert's weights dequantized
+  (``repro.serve.quantized.dequant_leaf``), then one einsum;
 * :func:`paged_attention_ref` — ``repro.kernels.paged_attention.
   _paged_attention_xla``: the same online-softmax recurrence over logical
   blocks with the same mask fill, one (B, block_size) slab per step.
@@ -60,6 +63,21 @@ def swis_matmul_ref(x: torch.Tensor, sign_plane: torch.Tensor,
                     dtype=x.dtype, consecutive=consecutive,
                     keep_slices=keep_slices)
     return torch.matmul(x.float(), w.float())
+
+
+def swis_matmul_experts_ref(x: torch.Tensor, sign_plane: torch.Tensor,
+                            mask_planes: torch.Tensor, shifts: torch.Tensor,
+                            scale: torch.Tensor, *, group: int,
+                            consecutive: bool = False,
+                            keep_slices: Optional[int] = None) -> torch.Tensor:
+    """``x (E, M, K)`` against a stack of E packed (K, N) weights ->
+    (E, M, N) float32: each expert dequantized to ``x.dtype``, then
+    ``einsum("emk,ekn->emn")`` in float32."""
+    w = torch.stack([
+        dequant_ref(s, m, sh, sc, group=group, dtype=x.dtype,
+                    consecutive=consecutive, keep_slices=keep_slices)
+        for s, m, sh, sc in zip(sign_plane, mask_planes, shifts, scale)])
+    return torch.einsum("emk,ekn->emn", x.float(), w.float())
 
 
 def paged_attention_ref(q4: torch.Tensor, k_arena: torch.Tensor,

@@ -14,7 +14,14 @@ steps, the final phase and cost report, ``--trace-out`` (a ``.json`` path
 gets Chrome trace-event JSON, open in Perfetto; anything else the
 request-lifecycle JSONL), the JSON report and the ``sample:`` line are
 those of ``repro.launch.serve``. Weights are random, from a seeded
-``torch.Generator``; ``--ckpt`` is not served yet. Compute is float32.
+``torch.Generator``; with ``--packed`` they are drawn and packed one layer
+at a time (``serve.quantized.init_packed_params``), so a model too large
+in float32 for the card (qwen2-moe-a2.7b: ~60 GB) is served packed
+(~19 GB). ``--ckpt`` is not served yet. Compute is float32.
+
+  python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --packed
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+      --smoke --device cpu --packed
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from repro_torch.models.model import Model
 from repro_torch.serve import (ContinuousBatchingEngine, DecodeEngine,
                                EngineConfig, SamplingParams)
 from repro_torch.serve.metrics import format_report
+from repro_torch.serve.quantized import init_packed_params
 
 
 def _metrics_line(step: int, m: dict) -> str:
@@ -118,13 +126,17 @@ def run(args: argparse.Namespace,
     dev = _device.resolve(args.device)
     cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
     cfg = cfg.replace(compute_dtype="float32")
-    if params is None:
-        params = pp.init_params(Model(cfg).build(),
-                                torch.Generator(device=dev).manual_seed(0),
-                                device=dev)
-
     qcfg = QuantConfig(method="swis", n_shifts=args.n_shifts,
                        group_size=args.group_size)
+    pack_stats = None
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if args.packed:
+            params, pack_stats = init_packed_params(Model(cfg).build(), qcfg,
+                                                    gen, device=dev)
+        else:
+            params = pp.init_params(Model(cfg).build(), gen, device=dev)
+
     max_len = args.prompt_len + args.tokens + 1
     rng = np.random.default_rng(0)
     prompts = rng.integers(
@@ -177,9 +189,10 @@ def run(args: argparse.Namespace,
               "requests": args.requests, "n_slots": args.n_slots,
               "tokens": args.tokens, "wall_s": round(dt, 2),
               "tok_per_s": round(args.requests * args.tokens / dt, 1)}
-    if eng.pack_stats:
-        report["packed_weights"] = eng.pack_stats["n_packed"]
-        report["compression"] = round(eng.pack_stats["compression"], 2)
+    pack_stats = pack_stats or eng.pack_stats
+    if pack_stats:
+        report["packed_weights"] = pack_stats["n_packed"]
+        report["compression"] = round(pack_stats["compression"], 2)
     if args.engine != "static":
         stats = eng.prefix_stats()
         if stats.get("enabled"):

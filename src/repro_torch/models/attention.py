@@ -113,6 +113,23 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
 
 
+def _last_writes(phys: torch.Tensor, off: torch.Tensor, arena) -> torch.Tensor:
+    """For each of a scatter's writes to arena slots (``phys``, ``off``),
+    the index of the last write to the same slot. Invalid tokens all land
+    in the trash block, so slots repeat; the reference's scatter leaves a
+    repeated slot with its last write's values (XLA and torch on the CPU
+    apply the writes in order), while the card's scatter picks any. Writing
+    each slot's last values from every duplicate gives the reference's
+    arena on both. The trash block is read by masked query rows (the mean
+    of V over their tables), whose hidden states a MoE block routes, so
+    its contents reach real tokens through expert capacity."""
+    key = phys * arena[1] + off
+    order = torch.arange(key.numel(), device=key.device)
+    last = torch.full((arena[0] * arena[1],), -1, dtype=torch.long,
+                      device=key.device)
+    return last.scatter_reduce_(0, key, order, reduce="amax")[key]
+
+
 def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                     positions: torch.Tensor, causal: bool = True,
                     window: Optional[int] = None,
@@ -187,9 +204,10 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             phys = torch.where(tok_valid, torch.gather(tl, 1, bi), 0)
             fp = phys.reshape(-1)
             fo = torch.remainder(new_pos, cache_len).long().reshape(-1)
-            ck[fp, fo] = kd.reshape((b * s,) + kd.shape[2:])
-            cv[fp, fo] = vd.reshape((b * s,) + vd.shape[2:])
-            cp[fp, fo] = torch.where(tok_valid, new_pos, -1).reshape(-1)
+            src = _last_writes(fp, fo, ck.shape[:2])
+            ck[fp, fo] = kd.reshape((b * s,) + kd.shape[2:])[src]
+            cv[fp, fo] = vd.reshape((b * s,) + vd.shape[2:])[src]
+            cp[fp, fo] = torch.where(tok_valid, new_pos, -1).reshape(-1)[src]
         else:
             if s != 1:
                 raise ValueError(
@@ -199,9 +217,10 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             bi = torch.div(idx, cache_len, rounding_mode="floor").long()
             off = torch.remainder(idx, cache_len).long()
             phys = torch.gather(tl, 1, bi[:, None])[:, 0]
-            ck[phys, off] = kd[:, 0]
-            cv[phys, off] = vd[:, 0]
-            cp[phys, off] = new_pos[:, 0]
+            src = _last_writes(phys, off, ck.shape[:2])
+            ck[phys, off] = kd[src, 0]
+            cv[phys, off] = vd[src, 0]
+            cp[phys, off] = new_pos[src, 0]
         if paged:
             out = paged_attention_decode(q, ck, cv, cp, block_tables,
                                          new_pos[:, 0], q_lens=q_lens,

@@ -70,26 +70,40 @@ def norm_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, eps: float = 1e-6):
     return (y * p["scale"].float()).to(dt)
 
 
-def dense(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Linear layer under the model's quantization policy."""
-    w = p["w"]
-    if isinstance(w, dict) and "mask_planes" in w:
-        k = w["sign_plane"].shape[0] * 32
-        pw = PackedWeight(
-            sign_plane=w["sign_plane"], mask_planes=w["mask_planes"],
-            shifts=w["shifts"], scale=w["scale"],
-            group_size=k // w["shifts"].shape[0],
-            n_shifts=int(w["mask_planes"].shape[0]), k=k,
-            c=w["sign_plane"].shape[1],
-            method="swis_c" if cfg.quant.cfg.method == "swis_c" else "swis")
-        return ops.swis_matmul(
-            x, pw, keep_slices=cfg.quant.keep_slices).to(x.dtype)
-    if cfg.quant.act_shifts:
-        raise NotImplementedError(
-            "activation truncation (act_shifts) is not ported yet")
+def is_packed(w) -> bool:
+    return isinstance(w, dict) and "mask_planes" in w
+
+
+def packed_weight(w: dict, cfg: ArchConfig) -> PackedWeight:
+    """A 2-D packed leaf as the SWIS op's :class:`PackedWeight`, with the
+    shift layout of the model's pack method."""
+    k = w["sign_plane"].shape[0] * 32
+    return PackedWeight(
+        sign_plane=w["sign_plane"], mask_planes=w["mask_planes"],
+        shifts=w["shifts"], scale=w["scale"],
+        group_size=k // w["shifts"].shape[0],
+        n_shifts=int(w["mask_planes"].shape[0]), k=k,
+        c=w["sign_plane"].shape[1],
+        method="swis_c" if cfg.quant.cfg.method == "swis_c" else "swis")
+
+
+def check_fake_quant(cfg: ArchConfig) -> None:
+    """Dense weights under a fake-quant policy are not served yet."""
     if cfg.quant.mode != "off" and cfg.quant.cfg.method != "none":
         raise NotImplementedError(
             f"quant mode {cfg.quant.mode!r} (fake-quant) is not ported yet")
+
+
+def dense(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Linear layer under the model's quantization policy."""
+    w = p["w"]
+    if is_packed(w):
+        return ops.swis_matmul(x, packed_weight(w, cfg),
+                               keep_slices=cfg.quant.keep_slices).to(x.dtype)
+    if cfg.quant.act_shifts:
+        raise NotImplementedError(
+            "activation truncation (act_shifts) is not ported yet")
+    check_fake_quant(cfg)
     return x @ w.to(x.dtype)
 
 

@@ -1,4 +1,4 @@
-"""Top-level model for the dense family (PyTorch port of
+"""Top-level model for the dense and MoE families (PyTorch port of
 ``repro.models.model``): embedding -> layer stack -> norm -> unembed, with
 the serving entry points ``prefill``, ``prefill_bucketed``,
 ``prefill_chunk``, ``decode_step``, ``mixed_step`` and ``verify_step``.
@@ -6,7 +6,8 @@ the serving entry points ``prefill``, ``prefill_bucketed``,
 The reference scans its stacked layer axis; here the layers are a Python
 loop over that axis, each layer reading its slice (a view) of the stacked
 parameter and cache tensors, so cache writes land in the stacked tensors in
-place.
+place. ``apply`` returns the MoE blocks' load-balancing aux summed over
+the layers, as the reference does; the serving entry points ignore it.
 """
 from __future__ import annotations
 
@@ -63,7 +64,8 @@ class Model:
               paged: bool = False, q_lens=None):
         """Forward pass over tokens (B, S). Returns (logits (B, S, V) — or
         (B, 1, V) with ``last_index`` (scalar or (B,)) or ``last_only`` —
-        cache, aux).
+        cache, aux) — ``aux`` the sum of the layers' ``moe_aux`` (0 for the
+        dense family).
 
         ``cache_index``: None (no cache), an int (write offset shared by
         the batch) or a (B,) tensor (per-slot start positions). ``q_lens``
@@ -80,17 +82,20 @@ class Model:
             positions = cache_index.to(torch.int32)[:, None] + ar[None, :]
         else:
             positions = int(cache_index) + ar
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.n_units):
             unit_params = _layer(params["blocks"], i)
             unit_cache = (_layer(cache["blocks"], i) if cache is not None
                           else None)
             for j, kind in enumerate(self.unit):
                 key = f"sub{j}_{kind}"
-                x, _ = tfm.block_apply(
+                x, _, aux = tfm.block_apply(
                     unit_params[key], x, cfg, kind, positions=positions,
                     cache=unit_cache[key] if unit_cache is not None else None,
                     cache_index=cache_index, block_tables=block_tables,
                     attend_cache=attend_cache, paged=paged, q_lens=q_lens)
+                if "moe_aux" in aux:
+                    aux_total = aux_total + aux["moe_aux"]
         if last_index is not None:
             b = x.shape[0]
             idx = torch.as_tensor(last_index, device=x.device).long()
@@ -99,8 +104,7 @@ class Model:
             x = x[:, -1:]
         x = norm_apply(params["final_norm"], x, cfg)
         logits = unembed_apply(params["embed"], x, cfg)
-        return logits, cache, torch.zeros((), dtype=torch.float32,
-                                          device=x.device)
+        return logits, cache, aux_total
 
     # -- serving ------------------------------------------------------------
 

@@ -79,3 +79,69 @@ def init_params(tree, generator: Optional[torch.Generator] = None,
         return (x * std).to(device=dev, dtype=dt)
 
     return tree_map(make, tree)
+
+
+def count_params(tree) -> int:
+    """Number of weights a placeholder tree describes (no allocation)."""
+    total = 0
+
+    def add(p: P):
+        nonlocal total
+        total += int(np.prod(p.shape, dtype=np.int64))
+
+    tree_map(add, tree)
+    return total
+
+
+def init_params_layerwise(tree, generator: Optional[torch.Generator],
+                          dtype=torch.float32, device="cuda",
+                          transform: Optional[Callable] = None):
+    """:func:`init_params` for a model tree whose ``"blocks"`` subtree is
+    stacked over layers, never holding that subtree whole before
+    ``transform``: each layer is materialized on its own, passed through
+    ``transform`` as ``{"blocks": layer}`` and copied into stacked tensors
+    allocated once, at the first layer's transformed shapes; each other
+    top-level subtree is materialized and passed through as ``{key:
+    subtree}``. ``transform`` returns a tree of the same top-level key
+    (identity by default; :func:`repro_torch.serve.quantized.
+    init_packed_params` packs each layer with it, so a model too large in
+    float32 is built packed). Draws come from ``generator`` in the tree's
+    key order, layer by layer within the blocks: the numbers differ from
+    :func:`init_params`'s, which draws each stacked leaf at once."""
+    dev = _device.resolve(device)
+    transform = transform or (lambda t: t)
+    out = {}
+    for key, sub in tree.items():
+        if key != "blocks":
+            out.update(transform({key: init_params(sub, generator, dtype,
+                                                   dev)}))
+            continue
+        n = _first_leaf(sub).shape[0]
+        layer = tree_map(lambda p: P(p.shape[1:], p.axes[1:], p.init,
+                                     p.scale, p.dtype), sub)
+        stacked = None
+        for i in range(n):
+            got = transform({"blocks": init_params(layer, generator, dtype,
+                                                   dev)})["blocks"]
+            if stacked is None:
+                stacked = tree_map(lambda a: torch.empty(
+                    (n,) + tuple(a.shape), dtype=a.dtype, device=a.device),
+                    got)
+            _copy_layer(stacked, got, i)
+            del got
+        out["blocks"] = stacked
+    return out
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _copy_layer(dst, src, i: int) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_layer(dst[k], src[k], i)
+    else:
+        dst[i].copy_(src)

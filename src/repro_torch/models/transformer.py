@@ -1,6 +1,10 @@
-"""Block assembly for the dense family (PyTorch port of
-``repro.models.transformer``, ``attn`` kind): pre-norm self-attention +
-MLP. The other block kinds (MoE, RG-LRU, Mamba, encoder, cross-attention)
+"""Block assembly (PyTorch port of ``repro.models.transformer``) for the
+dense and MoE families:
+
+  attn  pre-norm self-attention + MLP                 (dense)
+  moe   self-attention + mixture-of-experts FFN      (qwen2-moe / dbrx)
+
+The other block kinds (RG-LRU, Mamba, encoder, local and cross-attention)
 are not ported yet."""
 from __future__ import annotations
 
@@ -10,28 +14,38 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import build_mlp, build_norm, mlp_apply, norm_apply
 from repro_torch.models.params import P
+
+_KINDS = ("attn", "moe")
 
 
 def pattern_for(cfg: ArchConfig) -> Tuple[str, ...]:
     if cfg.family == "dense":
         return ("attn",)
+    if cfg.family == "moe":
+        return ("moe",)
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
 
-def build_block(cfg: ArchConfig, kind: str) -> dict:
-    if kind != "attn":
+def _ported(kind: str) -> None:
+    if kind not in _KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+
+
+def build_block(cfg: ArchConfig, kind: str) -> dict:
+    _ported(kind)
     d = cfg.d_model
+    ffn = ({"mlp": build_mlp(cfg)} if kind == "attn"
+           else {"moe": moe_mod.build_moe(cfg)})
     return {"ln1": build_norm(d), "attn": attn_mod.build_attention(cfg),
-            "ln2": build_norm(d), "mlp": build_mlp(cfg)}
+            "ln2": build_norm(d), **ffn}
 
 
 def build_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                       dtype, per_slot: bool = False) -> dict:
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    _ported(kind)  # both kinds keep the standard attention cache
     c = attn_mod.build_cache(cfg, batch, max_len, dtype)
     cache_len = c["k"].shape[1]
     # position slots start invalid (-1) so unwritten entries are masked
@@ -49,14 +63,19 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 cache_index=None, block_tables: Optional[torch.Tensor] = None,
                 attend_cache: bool = False, paged: bool = False,
                 q_lens: Optional[torch.Tensor] = None):
-    """Returns (x, cache)."""
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    """Returns (x, cache, aux): ``aux`` holds ``moe_aux`` for a moe block,
+    and is empty otherwise."""
+    _ported(kind)
     h, cache = attn_mod.attention_apply(
         p["attn"], norm_apply(p["ln1"], x, cfg), cfg, positions=positions,
         causal=cfg.causal, window=None, cache=cache, cache_index=cache_index,
         block_tables=block_tables, attend_cache=attend_cache, paged=paged,
         q_lens=q_lens)
     x = x + h
-    x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg)
-    return x, cache
+    aux = {}
+    if kind == "moe":
+        h, aux = moe_mod.moe_apply(p["moe"], norm_apply(p["ln2"], x, cfg), cfg)
+        x = x + h
+    else:
+        x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg)
+    return x, cache, aux

@@ -109,6 +109,85 @@ def test_engine_on_card_matches_cpu_path(cuda_device):  # noqa: F811
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("method", ["swis", "swis_c"])
+@pytest.mark.parametrize("shared", [True, False])
+def test_swis_expert_kernel_matches_plain(cuda_device, method, shared):  # noqa: F811
+    """The expert-axis launch (one launch for a stack of E packed weights)
+    against its plain version, dequant then einsum: a sweep of E, M, K and
+    N with ragged M and N, the experts' rows shared (expert stride 0, as
+    decode's wi and wg read them) or each expert's own (wo, the capacity
+    path), fp32 within rtol 1e-5 and bf16 within 2e-2."""
+    from repro_torch.serve import quantized
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    for e, m, k, n, n_shifts in [(64, 4, 2048, 1408, 4), (64, 4, 1408, 2048, 4),
+                                 (64, 21, 2048, 1408, 4), (8, 37, 256, 200, 3),
+                                 (3, 1, 64, 96, 2), (5, 9, 1536, 64, 5)]:
+        w = torch.randn((e, k, n), generator=g, device=cuda_device) * 0.05
+        leaf = quantized.pack_tree({"wi": w}, swis.QuantConfig(
+            method=method, n_shifts=n_shifts))[0]["wi"]
+        c = method == "swis_c"
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            shape = (m, k) if shared else (e, m, k)
+            x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+            for keep in (None, 1):
+                before = sm.KERNEL.launches
+                got = ops.swis_matmul_experts(x, leaf, consecutive=c,
+                                              keep_slices=keep)
+                assert sm.KERNEL.launches == before + 1
+                xe = x[None].expand(e, m, k) if shared else x
+                want = ref.swis_matmul_experts_ref(
+                    xe, leaf["sign_plane"], leaf["mask_planes"],
+                    leaf["shifts"], leaf["scale"], group=4, consecutive=c,
+                    keep_slices=keep)
+                assert got.shape == (e, m, n)
+                for i in range(e):  # each expert against its own scale
+                    _close(got[i], want[i], tol)
+        # an x that is not 16-byte aligned is staged from a copy
+        x = torch.randn((e * m * k + 1,), generator=g, device=cuda_device)
+        xe = x[1:].view(e, m, k)
+        got = ops.swis_matmul_experts(xe, leaf, consecutive=c)
+        want = ref.swis_matmul_experts_ref(
+            xe, leaf["sign_plane"], leaf["mask_planes"], leaf["shifts"],
+            leaf["scale"], group=4, consecutive=c)
+        _close(got, want, 1e-5)
+        with pytest.raises(ValueError):
+            ops.swis_matmul_experts(xe[:, :, :k - 32], leaf)
+
+
+def test_moe_engine_on_card_matches_cpu_path(cuda_device):  # noqa: F811
+    """The qwen2-moe smoke model, packed, in block mode with paged
+    attention: the same greedy tokens on the card and the CPU path, with 10
+    SWIS launches a layer per model call (4 attention, 3 shared, 3 expert
+    stacks)."""
+    cfg = configs.get_smoke("qwen2-moe-a2.7b").replace(
+        compute_dtype="float32", d_ff=64,
+        moe=configs.MoEConfig(n_experts=6, top_k=4, n_shared=2,
+                              d_ff_expert=64, group_tokens=64,
+                              n_experts_padded=8))
+    params = pp.init_params(Model(cfg).build(), torch.Generator().manual_seed(2),
+                            device="cpu")
+    ecfg = EngineConfig(max_len=48, n_slots=2, packed=True,
+                        use_paged_kernel=True)
+    rng = np.random.default_rng(6)
+    shared = rng.integers(0, cfg.vocab, 16)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, n)])
+               for n in (5, 9, 3)] + [rng.integers(0, cfg.vocab, 12)]
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        eng = ContinuousBatchingEngine(cfg, params, ecfg, device=dev)
+        sm.KERNEL.launches = pa.KERNEL.launches = 0
+        rids = [eng.submit(p, SamplingParams(max_tokens=6)) for p in prompts]
+        out = eng.drain()
+        outs.append([out[r] for r in rids])
+        if dev != "cpu":
+            assert sm.KERNEL.launches == 10 * cfg.n_layers * eng.model_calls()
+            assert pa.KERNEL.launches == cfg.n_layers * eng.arena_calls()
+            assert eng.prefix_stats()["hits"] >= 1
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
 # -- edges of the kernels' designs: row tiles, K splits, column tiles, clusters
 
 

@@ -136,8 +136,10 @@ def test_logits_match_reference(variant, packed, keep_slices):
 
 def test_configs_match_reference():
     """The port's config dataclasses keep the reference's fields and
-    defaults, and each ported arch its published widths (smollm-135m,
-    phi3-mini-3.8b, deepseek-7b: the one-card dense family)."""
+    defaults (``MoEConfig.e_total`` included), and each ported arch its
+    published widths (smollm-135m, phi3-mini-3.8b, deepseek-7b: the
+    one-card dense family; qwen2-moe-a2.7b and dbrx-132b: the MoE
+    family)."""
     import dataclasses
 
     import repro.configs.base as jbase
@@ -153,7 +155,8 @@ def test_configs_match_reference():
         for ds in (False, True):
             assert (TQuant(n_shifts=t, double_shift=ds).shift_levels()
                     == JQuant(n_shifts=t, double_shift=ds).shift_levels())
-    assert TC.ARCH_IDS == ("phi3-mini-3.8b", "smollm-135m", "deepseek-7b")
+    assert TC.ARCH_IDS == ("phi3-mini-3.8b", "smollm-135m", "deepseek-7b",
+                           "qwen2-moe-a2.7b", "dbrx-132b")
     for arch in TC.ARCH_IDS:
         for getter in ("get_config", "get_smoke"):
             jc = getattr(C, getter)(arch)
@@ -161,3 +164,69 @@ def test_configs_match_reference():
             assert dataclasses.asdict(tc) == dataclasses.asdict(jc), arch
             assert ((tc.head_dim, tc.padded_vocab)
                     == (jc.head_dim, jc.padded_vocab)), arch
+            if jc.moe is not None:
+                assert tc.moe.e_total == jc.moe.e_total, arch
+    for n, padded in ((8, 0), (60, 64), (16, 8)):
+        assert (TC.MoEConfig(n_experts=n, n_experts_padded=padded).e_total
+                == C.MoEConfig(n_experts=n, n_experts_padded=padded).e_total)
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_params(packed):
+    jcfg = C.get_smoke("qwen2-moe-a2.7b").replace(compute_dtype="float32")
+    jparams = jpp.init_params(JModel(jcfg).build(), jax.random.key(6))
+    if packed:
+        jparams, stats = jpack_tree(jparams, JQuant(n_shifts=3))
+        # q/k/v/o, the routed wi and wg stacks, and the three shared
+        # experts; the 48-wide expert wo is too narrow to pack
+        assert stats["n_packed"] == 9
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
+    return jparams, tparams
+
+
+@pytest.mark.parametrize("packed,keep_slices", [(False, None), (True, None),
+                                                (True, 2)])
+def test_moe_logits_match_reference(packed, keep_slices):
+    """The qwen2-moe smoke model (2 layers, shared experts): ``apply``
+    logits and the layers' summed ``moe_aux`` (the capacity path), then a
+    paged ``decode_step`` over a block arena (the dropless decode path).
+    ``keep_slices`` truncates the attention GEMMs only, as in the
+    reference."""
+    fields = dict(compute_dtype="float32")
+    jcfg = C.get_smoke("qwen2-moe-a2.7b").replace(**fields)
+    tcfg = TC.get_smoke("qwen2-moe-a2.7b").replace(**fields)
+    if packed:
+        jcfg = jcfg.replace(quant=JPolicy(cfg=JQuant(n_shifts=3), mode="off",
+                                          keep_slices=keep_slices))
+        tcfg = tcfg.replace(quant=TPolicy(cfg=TQuant(n_shifts=3), mode="off",
+                                          keep_slices=keep_slices))
+    jparams, tparams = _moe_params(packed)
+    jm, tm = JModel(jcfg), TModel(tcfg)
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, jcfg.vocab, (2, 12)).astype(np.int32)
+    jl, _, jaux = jax.jit(jm.apply)(jparams, {"tokens": jnp.asarray(toks)})
+    tl, _, taux = tm.apply(tparams, {"tokens": torch.from_numpy(toks).long()})
+    _close(tl, jl)
+    assert float(jaux) > 0
+    np.testing.assert_allclose(taux.numpy(), np.asarray(jaux), rtol=1e-5)
+
+    n_blocks = 6
+    shape = (jcfg.n_layers, n_blocks, BS, jcfg.n_kv_heads, jcfg.head_dim)
+    kv = rng.normal(0, 1, (2,) + shape).astype(np.float32)
+    pos = np.full(shape[:3], -1, np.int32)
+    pos[:, 0] = 4  # garbage in the trash block
+    pos[:, 3, :8], pos[:, 5, :3], pos[:, 2, :6] = (
+        np.arange(8), np.arange(8, 11), np.arange(6))
+    arena = {"blocks": {"sub0_moe": {"k": kv[0], "v": kv[1], "pos": pos}}}
+    tables = np.zeros((3, L // BS), np.int32)
+    tables[0, :2], tables[1, :1] = [3, 5], [2]  # row 2: a free slot
+    tok = rng.integers(0, jcfg.vocab, (3, 1)).astype(np.int32)
+    idx = np.array([11, 6, 0], np.int32)
+    jl, _ = jm.decode_step(jparams, jnp.asarray(tok),
+                           jax.tree.map(jnp.asarray, arena), jnp.asarray(idx),
+                           jnp.asarray(tables), paged="xla")
+    tl, _ = tm.decode_step(tparams, torch.from_numpy(tok).long(),
+                           from_jax_params(arena, device="cpu"),
+                           torch.from_numpy(idx), torch.from_numpy(tables),
+                           paged=True)
+    _close(tl[:2], jl[:2])

@@ -33,9 +33,12 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(got["modules"]) >= 20, got["modules"]
-    # the observability modules, the launcher and the example are walked
+    # the observability modules, the launcher, the example and the MoE
+    # family are walked
     for name in ("serve.metrics", "serve.trace", "serve.costmodel",
-                 "perfmodel.pe", "launch.serve", "examples.serve_swis"):
+                 "perfmodel.pe", "launch.serve", "examples.serve_swis",
+                 "models.moe", "configs.qwen2_moe_a2_7b",
+                 "configs.dbrx_132b"):
         assert f"repro_torch.{name}" in got["modules"], name
     assert got["bad"] == [], f"port imported {got['bad']}"
 

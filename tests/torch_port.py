@@ -43,10 +43,11 @@ SMOKE_FIELDS = dict(compute_dtype="float32", d_model=64, n_heads=4,
 
 
 @functools.lru_cache(maxsize=None)
-def bridged_smoke(seed: int = 5):
-    """(jcfg, tcfg, jparams, tparams): the smoke-size smollm-135m config in
-    both packages and the JAX package's random params, bridged into the
-    port in this process."""
+def bridged_smoke(seed: int = 5, arch: str = "smollm-135m"):
+    """(jcfg, tcfg, jparams, tparams): the smoke-size config of ``arch`` in
+    both packages (smollm-135m's widened by ``SMOKE_FIELDS``; the others
+    as published, in float32) and the JAX package's random params, bridged
+    into the port in this process."""
     import jax
 
     import repro.configs as C
@@ -55,28 +56,30 @@ def bridged_smoke(seed: int = 5):
     from repro_torch import configs as TC
     from repro_torch.bridge import from_jax_params
 
-    jcfg = C.get_smoke("smollm-135m").replace(**SMOKE_FIELDS)
-    tcfg = TC.get_smoke("smollm-135m").replace(**SMOKE_FIELDS)
+    fields = (SMOKE_FIELDS if arch == "smollm-135m"
+              else dict(compute_dtype="float32"))
+    jcfg = C.get_smoke(arch).replace(**fields)
+    tcfg = TC.get_smoke(arch).replace(**fields)
     jparams = jpp.init_params(JModel(jcfg).build(), jax.random.key(seed))
     tparams = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, tcfg, jparams, tparams
 
 
-def jax_engine(**kw):
-    """The JAX engine for EngineConfig(**kw), with paged_impl="xla" where
-    use_paged_kernel is set; one per configuration and process, reset: its
-    jit caches carry over between tests, so the traffic's shapes compile
-    once."""
-    eng = _jax_engine(tuple(sorted(kw.items())))
+def jax_engine(arch: str = "smollm-135m", **kw):
+    """The JAX engine for EngineConfig(**kw) on ``bridged_smoke(arch=
+    arch)``, with paged_impl="xla" where use_paged_kernel is set; one per
+    configuration and process, reset: its jit caches carry over between
+    tests, so the traffic's shapes compile once."""
+    eng = _jax_engine(arch, tuple(sorted(kw.items())))
     eng.reset()
     return eng
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_engine(items):
+def _jax_engine(arch, items):
     from repro.serve import ContinuousBatchingEngine, EngineConfig
 
-    jcfg, _, jparams, _ = bridged_smoke()
+    jcfg, _, jparams, _ = bridged_smoke(arch=arch)
     kw = dict(items)
     if kw.get("use_paged_kernel"):
         kw["paged_impl"] = "xla"
