@@ -51,28 +51,51 @@ Phases, each fatal on failure (exit code 1, and no result line):
    turns (wall ms per step both ways, the p50 and p95 of every step phase,
    TTFT and TPOT), and at a 4-layer cut the card's counters, ``cost.*``
    values, scheduler gauges and prefix stats equal the CPU plain path's.
-7. the MoE family at full width and depth, once phases 4-6's tensors are
-   freed: qwen2-moe-a2.7b (24 layers, 60 experts top-4 padded to 64, 4
-   shared) is (a) drawn and packed one layer at a time (seconds, packed
-   GB, peak memory under the float32 tree's size); (b) the SWIS kernel's
-   expert-axis launch is held against its plain version on layer 0's
-   expert stacks at the decode shapes (rows shared by every expert, and
-   each expert's own) and a capacity-path shape, rtol 1e-5, and one
-   decode layer's 3 launches are timed beside their bound, the plain
-   version and ``torch.bmm`` over the dequantized stack; (c) phase 4's
+7. the MoE family at full width, once phases 4-6's tensors are freed:
+   qwen2-moe-a2.7b (60 experts top-4 padded to 64, 4 shared) at the first
+   12 of its 24 layers is (a) drawn and packed one layer at a time
+   (seconds, packed GB, peak memory under the float32 tree's size); (b)
+   the SWIS kernel's expert-axis launch is held against its plain version
+   on layer 0's expert stacks at the decode shapes (rows shared by every
+   expert, and each expert's own) and a capacity-path shape, rtol 1e-5,
+   and one decode layer's 3 launches are timed beside their bound, the
+   plain version and ``torch.bmm`` over the dequantized stack, as is the
+   paged decode launch at qwen2-moe's heads beside SDPA; (c) phase 4's
    traffic, 16 greedy tokens each, in block mode with paged attention:
-   10 SWIS launches a layer per model call (3 of them expert-axis), 24
-   paged launches per arena call, a prefix hit, wall and device-busy ms
-   per decode step; (d) greedy tokens at a 1-layer cut equal on the card
-   and the CPU plain path; (e) the fused step and speculative decode on
-   (c)'s traffic, launches checked, tokens equal on a fresh engine and, at
-   the 1-layer cut, to the CPU plain path's (draft counts too). Their
-   tokens are not held to (c)'s: multi-token launches take the capacity
-   path, which routes pad rows and drops over-capacity choices.
+   10 SWIS launches a layer per model call (3 of them expert-axis), one
+   paged launch a layer per arena call, a prefix hit, wall and
+   device-busy ms per decode step; (d) greedy tokens at a 1-layer cut
+   equal on the card and the CPU plain path; (e) the fused step and
+   speculative decode on (c)'s traffic, launches checked, tokens equal on
+   a fresh engine and, at the 1-layer cut, to the CPU plain path's (draft
+   counts too). Their tokens are not held to (c)'s: multi-token launches
+   take the capacity path, which routes pad rows and drops over-capacity
+   choices.
+8. the recurrent families at full width and depth, one at a time, through
+   the contiguous fallback (no block arena, so no paged launch):
+   recurrentgemma-2b (26 layers: 8 units of rec/rec/attn_local and 2 tail
+   rec layers) and mamba2-2.7b (64 layers) are (a) drawn and packed one
+   layer at a time; (b) the SWIS kernel is held against its plain version
+   at a Griffin rec layer's, an attn_local layer's and a Mamba2 layer's
+   GEMMs at M = 4 and Mamba2's in_proj at M = 256, and each is timed
+   beside its bound, the plain version and ``torch.matmul``; (c) Griffin
+   serves phase 4's traffic (32 greedy tokens each, max_len 128) with
+   ``prefix_cache=True`` asked for, and must fall back: 164 SWIS launches
+   per model call, wall and device-busy ms per decode step, and
+   ``DecodeEngine`` at T 0.7 equal to the continuous engine's
+   ``generate``; (d) a 2100-token prompt, past the 2048-token window,
+   wraps every local ring (checked on its position planes); a 4-layer cut
+   (the first unit and the first tail layer) gives the CPU plain path's
+   tokens for two of (c)'s prompts and (d)'s; (e) Mamba2 serves (c)'s
+   traffic and a 600-token prompt (three 256-token SSD chunks, dt = 0
+   padding) at 128 SWIS launches per model call, with the same checks at
+   a 2-layer cut; (f) the launcher serves ``--arch recurrentgemma-2b
+   --packed`` in process and prints its report.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (each
-kernel's launches summed over the paths of phases 4 to 7, and by path; the
-SWIS row also carries the expert-axis launch's own numbers); the last is
+kernel's launches summed over the paths of phases 4 to 8, and by path; the
+SWIS row also carries the expert-axis launch's own numbers and phase 8's
+layers, the paged row the qwen2-moe decode launch); the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -255,13 +278,16 @@ def swis_phase(dev):
     return perf
 
 
-def swis_layer_timing(dev, m, keep_slices=None, gemms=LAYER_GEMMS):
-    """One layer's 7 GEMMs ``gemms`` (smollm-135m's by default) at ``m``
+def swis_layer_timing(dev, m, keep_slices=None, gemms=LAYER_GEMMS,
+                      timer=None):
+    """One layer's GEMMs ``gemms`` (smollm-135m's 7 by default) at ``m``
     rows of fp32 x, through the top ``keep_slices`` planes (None: all): the
     kernel held against the plain version (rtol 1e-5, atol 1e-5*max|ref|),
     then the kernel, the plain version and ``torch.matmul`` on the dense
-    fp32 weight those planes give (sums of per-GEMM means), and the
+    fp32 weight those planes give (sums of per-GEMM means; the kernel and
+    ``torch.matmul`` by ``timer``, :func:`cuda_ms` by default), and the
     bound."""
+    timer = timer or cuda_ms
     import torch
     from repro_torch.core.packing import PackedWeight
     from repro_torch.kernels import ops, ref
@@ -286,11 +312,11 @@ def swis_layer_timing(dev, m, keep_slices=None, gemms=LAYER_GEMMS):
               f"swis_matmul timed shape M={m} K={k} N={n} keep={keep_slices}: "
               f"max|err|={(got - want).abs().max().item():.3g} vs "
               f"max|ref|={top:.3g}")
-        t = cuda_ms(lambda: ops.swis_matmul(x, pwn, keep_slices=keep_slices))
+        t = timer(lambda: ops.swis_matmul(x, pwn, keep_slices=keep_slices))
         plain_ms += cuda_ms(lambda: ref.swis_matmul_ref(
             x, pw.sign_plane, pw.mask_planes, pw.shifts, scale, group=GROUP,
             keep_slices=keep_slices), iters=20)
-        t_lib = cuda_ms(lambda: torch.matmul(x, w))
+        t_lib = timer(lambda: torch.matmul(x, w))
         ms += t
         lib_ms += t_lib
         per_gemm.append(f"{k}x{n} {t * 1e3:.2f}/{t_lib * 1e3:.2f}")
@@ -435,13 +461,15 @@ def paged_phase(dev):
 
 
 def paged_timing(dev, *, nb, n_blocks, live, sq=1, q_lens=None, hkv=3, g=3,
-                 dh=64):
+                 dh=64, timer=None):
     """One launch (``hkv * g`` heads over ``hkv`` KV heads of ``dh``, by
     default smollm-135m's 9 over 3 of 64; block size 8, fp32 cache, ``nb``
     logical blocks with ``live`` of them filled per row, ``sq`` queries a
     row of which ``q_lens`` are real; a row with ``q_lens`` 1 decodes at its
-    last position): the kernel, the plain version, one SDPA call over the
-    gathered K/V, and the bound."""
+    last position), held against the plain version (1e-5): the kernel, the
+    plain version, one SDPA call over the gathered K/V (the kernel and SDPA
+    by ``timer``, :func:`cuda_ms` by default), and the bound."""
+    timer = timer or cuda_ms
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -464,7 +492,13 @@ def paged_timing(dev, *, nb, n_blocks, live, sq=1, q_lens=None, hkv=3, g=3,
     plain = lambda: ref.paged_attention_ref(  # noqa: E731
         q4, k, v, pos, tables, q_pos, ql, sq=sq, causal=True, window=None,
         neg=mask_value(torch.float32))
-    ms = cuda_ms(kern)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+          f"paged_attention timed shape (B {b}, Hkv {hkv}, G {g}, Dh {dh}, "
+          f"nb {nb}, Sq {sq}): max|err|={err:.3g} (1e-5)")
+    ms = timer(kern)
     plain_ms = cuda_ms(plain, iters=20 if nb <= 16 else 3, warmup=2)
     # yardstick: one SDPA call over the gathered, head-expanded K/V
     gk = k[tl].reshape(b, nb * bs, hkv, dh).repeat_interleave(g, 2).transpose(1, 2)
@@ -474,8 +508,8 @@ def paged_timing(dev, *, nb, n_blocks, live, sq=1, q_lens=None, hkv=3, g=3,
     mask = ((gp[:, None, :] >= 0) & (gp[:, None, :] <= qp[:, :, None])
             & (qi[None, :, None] < ql[:, None, None]))[:, None]
     qs = q.transpose(1, 2).contiguous()
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, gk, gv,
-                                                            attn_mask=mask))
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(qs, gk, gv,
+                                                          attn_mask=mask))
     live_blocks = torch.unique(tl[tl != 0]).numel()
     n_valid = int(mask.sum().item())
     nbytes = (q.numel() * 4 + 2 * live_blocks * bs * hkv * dh * 4
@@ -483,7 +517,7 @@ def paged_timing(dev, *, nb, n_blocks, live, sq=1, q_lens=None, hkv=3, g=3,
               + q.numel() * 4)
     bound_ms, by = bound(nbytes, 4 * n_valid * h * dh)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": by}
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
 
 
 def extra_timings(dev, card):
@@ -626,16 +660,24 @@ def serve(engine, reqs, n_tokens):
 
 
 def layer_cut(cfg, params, n_layers=4):
-    """(config, weights on the card, the same weights on the CPU) of the
-    first ``n_layers`` layers: the depth at which the CPU plain path runs
-    a path's traffic in seconds."""
+    """(config, weights on the card, the same weights on the CPU) of a
+    ``n_layers``-layer model: the first stacked units it holds and, where
+    its depth leaves a tail, the first tail layers of ``params`` (Griffin
+    at 4 layers: the first (rec, rec, attn_local) unit and the first tail
+    rec layer). The depth at which the CPU plain path runs a path's
+    traffic in seconds."""
     from repro_torch.models import params as pp
+    from repro_torch.models.model import Model
 
-    cut = pp.tree_map(lambda a: a, params)
-    cut["blocks"] = pp.tree_map(lambda a: a[:n_layers].contiguous(),
+    cut_cfg = cfg.replace(n_layers=n_layers)
+    model = Model(cut_cfg)
+    cut = {k: v for k, v in params.items() if k != "tail"}
+    cut["blocks"] = pp.tree_map(lambda a: a[:model.n_units].contiguous(),
                                 params["blocks"])
-    return (cfg.replace(n_layers=n_layers), cut,
-            pp.tree_map(lambda a: a.cpu(), cut))
+    if model.tail:
+        cut["tail"] = {f"tail{i}_{kind}": params["tail"][f"tail{i}_{kind}"]
+                       for i, kind in enumerate(model.tail)}
+    return cut_cfg, cut, pp.tree_map(lambda a: a.cpu(), cut)
 
 
 def check_dispatches(label, engine):
@@ -1196,6 +1238,7 @@ def observability_phase(dev, card, kernels, cfg, params):
 # -- phase 7: the MoE family at full width --------------------------------------
 
 MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_LAYERS = 12  # phase 7's depth: the first 12 of qwen2-moe's 24 layers
 MOE_PER_LAYER = 10  # SWIS launches a layer: q/k/v/o, 3 shared, 3 expert stacks
 
 
@@ -1207,10 +1250,14 @@ def tree_bytes(tree):
     return sum(sizes)
 
 
-def moe_init(dev, card):
-    """(a) qwen2-moe-a2.7b at its published widths and depth, random
-    weights from a seed, drawn and SWIS-packed one layer at a time on the
-    card: the float32 tree (~60 GB) never exists whole."""
+def packed_init(dev, arch, n_layers=None):
+    """``arch`` at its published widths (and depth, unless ``n_layers``
+    cuts it), random weights from seed 0, drawn and SWIS-packed one layer
+    at a time on the card (``init_packed_params``, as the launcher's
+    ``--packed`` does): the float32 tree never exists whole. Returns (cfg,
+    qcfg, params, line): ``line`` reads the seconds, the packed layers' and
+    the whole tree's GB, the float32 tree's and ``max_memory_allocated``;
+    fails if the peak reaches the float32 tree's size."""
     import torch
     from repro_torch import configs
     from repro_torch.core.swis import QuantConfig
@@ -1218,7 +1265,9 @@ def moe_init(dev, card):
     from repro_torch.models.model import Model
     from repro_torch.serve.quantized import init_packed_params
 
-    cfg = configs.get_config(MOE_ARCH).replace(compute_dtype="float32")
+    cfg = configs.get_config(arch).replace(compute_dtype="float32")
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     qcfg = QuantConfig(method="swis", n_shifts=N_SHIFTS, group_size=GROUP)
     tree = Model(cfg).build()
     torch.cuda.synchronize()
@@ -1230,18 +1279,29 @@ def moe_init(dev, card):
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     fp32 = pp.count_params(tree) * 4
-    blocks = tree_bytes(params["blocks"])
+    layers = tree_bytes({k: v for k, v in params.items()
+                         if k in ("blocks", "tail")})
     total = tree_bytes(params)
+    check(peak < fp32, f"{arch}: peak memory {peak / 1e9:.1f} GB: the "
+          f"float32 tree ({fp32 / 1e9:.1f} GB) must never be built whole")
+    line = (f"drawn and packed layer by layer in {secs:.1f} s: "
+            f"{stats['n_packed']} GEMM leaves, layers {layers / 1e9:.3f} GB "
+            f"packed, {total / 1e9:.3f} GB with the float32 embeddings "
+            f"(float32 tree {fp32 / 1e9:.3f} GB); max_memory_allocated "
+            f"{peak / 1e9:.3f} GB")
+    return cfg, qcfg, params, line
+
+
+def moe_init(dev, card):
+    """(a) qwen2-moe-a2.7b at its published widths and the first
+    ``MOE_LAYERS`` of its layers, random weights from a seed, drawn and
+    SWIS-packed one layer at a time on the card: the float32 tree never
+    exists whole."""
+    cfg, qcfg, params, line = packed_init(dev, MOE_ARCH, MOE_LAYERS)
     print(f"phase 7 (a): {MOE_ARCH} ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
           f"padded to {cfg.moe.e_total}, expert d_ff {cfg.moe.d_ff_expert}, "
-          f"{cfg.moe.n_shared} shared) drawn and packed layer by layer on "
-          f"{card} in {secs:.1f} s: {stats['n_packed']} stacked GEMM leaves, "
-          f"layers {blocks / 1e9:.3f} GB packed, {total / 1e9:.3f} GB with "
-          f"the float32 embeddings (float32 tree {fp32 / 1e9:.3f} GB); "
-          f"max_memory_allocated {peak / 1e9:.3f} GB")
-    check(peak < fp32, f"peak memory {peak / 1e9:.1f} GB: the float32 tree "
-          f"({fp32 / 1e9:.1f} GB) must never be built whole")
+          f"{cfg.moe.n_shared} shared) on {card}: {line}")
     return cfg, qcfg, params
 
 
@@ -1347,8 +1407,21 @@ def expert_phase(dev, card, params, cfg):
           + ", ".join(f"{t * 1e3:.1f}" for t in t2d) + f"; a decode "
           f"layer's 10 SWIS launches {(ms + sum(t2d)):.4f} ms, x "
           f"{cfg.n_layers} layers {(ms + sum(t2d)) * cfg.n_layers:.3f} ms")
+    # the paged decode launch at qwen2-moe's heads (16 of Dh 128, G 1) over
+    # (c)'s arena: 4 rows of 9-10 live blocks of 8 (64 prompt tokens and up
+    # to 16 more) of the 12 logical blocks max_len 96 gives
+    pg = paged_timing(dev, nb=12, n_blocks=97, live=(10, 10, 9, 10),
+                      hkv=cfg.n_kv_heads, g=cfg.n_heads // cfg.n_kv_heads,
+                      dh=cfg.head_dim, timer=event_ms)
+    print(f"paged_attention {MOE_ARCH} decode launch (B=4, {cfg.n_heads} "
+          f"heads of Dh {cfg.head_dim}, G 1, 12 logical blocks, fp32 cache) "
+          f"on {card} (CUDA events behind a spin kernel): kernel "
+          f"{pg['ms']:.5f} ms, SDPA {pg['library_ms']:.5f} ms, plain "
+          f"{pg['plain_ms']:.4f} ms, bound {pg['bound_ms']:.6f} ms "
+          f"({pg['bound_by']}); max|err| {pg['max_abs_err']:.3g} (1e-5)")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
+            "paged_decode": pg}
 
 
 def moe_counts(label, engine, kernels, cfg, experts0):
@@ -1375,8 +1448,8 @@ def moe_counts(label, engine, kernels, cfg, experts0):
 
 
 def moe_phase(dev, card, kernels):
-    """Phase 7: qwen2-moe-a2.7b at full width and 24 layers on the card.
-    (a) init and pack layer by layer; (b) the expert-axis launch against
+    """Phase 7: qwen2-moe-a2.7b at full width and ``MOE_LAYERS`` layers on
+    the card. (a) init and pack layer by layer; (b) the expert-axis launch against
     its plain version and timed; (c) 8 requests of 64 prompt tokens (4
     sharing a 32-token prefix), 16 greedy tokens each, on 4 slots, block
     mode with paged attention, launches checked per model call, a prefix
@@ -1496,6 +1569,271 @@ def moe_phase(dev, card, kernels):
     return by_path, perf
 
 
+# -- phase 8: the recurrent families at full width -------------------------------
+
+GRIFFIN_ARCH, MAMBA_ARCH = "recurrentgemma-2b", "mamba2-2.7b"
+# SWIS launches a layer, by block kind: rec's in_x, in_gate and out and its
+# MLP's wi, wg and wo; attn_local's q, k, v and o and its MLP's three;
+# mamba's in_proj and out_proj
+SWIS_PER_KIND = {"rec": 6, "attn_local": 7, "mamba": 2}
+# per model call at full depth: Griffin's 18 rec and 8 attn_local layers,
+# Mamba2's 64 mamba layers
+SWIS_PER_CALL = {GRIFFIN_ARCH: 18 * 6 + 8 * 7, MAMBA_ARCH: 64 * 2}
+# (K, N) of one decode layer's GEMMs at the published widths, in launch order
+RECURRENT_LAYERS = {
+    "recurrentgemma-2b rec": [(2560, 2560)] * 3 + [(2560, 7680)] * 2
+    + [(7680, 2560)],
+    "recurrentgemma-2b attn_local": [(2560, 2560), (2560, 256), (2560, 256),
+                                     (2560, 2560), (2560, 7680), (2560, 7680),
+                                     (7680, 2560)],
+    "mamba2-2.7b mamba": [(2560, 10576), (5120, 2560)],
+}
+WINDOW_PROMPT = 2100  # past recurrentgemma-2b's 2048-token window
+MAMBA_LONG_PROMPT = 600  # three 256-token SSD chunks, the last padded
+
+
+def swis_per_call(model):
+    """SWIS launches of one model call, counted from the model's layers."""
+    kinds = list(model.unit) * model.n_units + list(model.tail)
+    return sum(SWIS_PER_KIND[k] for k in kinds)
+
+
+def recurrent_kernel_phase(dev, card):
+    """(b) The SWIS kernel at the recurrent families' decode layers (M = 4)
+    and at Mamba2's in_proj at the prefill row count (M = 256): each GEMM
+    held against the plain version (rtol 1e-5, atol 1e-5*max|ref|), and
+    each layer timed by CUDA events behind a spin kernel beside its bound,
+    the plain version and ``torch.matmul`` on the dense fp32 weights.
+    Returns {label: timing}."""
+    out = {}
+    shapes = [(label, 4, gemms) for label, gemms in RECURRENT_LAYERS.items()]
+    shapes.append(("mamba2-2.7b in_proj prefill", 256, [(2560, 10576)]))
+    for label, m, gemms in shapes:
+        p = swis_layer_timing(dev, m, gemms=gemms, timer=event_ms)
+        out[f"{label} M={m}"] = p
+        print(f"phase 8 (b): swis_matmul {label} ({len(gemms)} GEMMs at "
+              f"M={m}, fp32 x) on {card} (CUDA events behind a spin kernel): "
+              f"kernel {p['ms']:.4f} ms, torch.matmul {p['library_ms']:.4f} "
+              f"ms, plain {p['plain_ms']:.4f} ms, bound {p['bound_ms']:.5f} "
+              f"ms ({p['bound_by']}); max|err| {p['max_abs_err']:.3g} against "
+              f"the plain version (rtol 1e-5, atol 1e-5*max|ref|)")
+    return out
+
+
+def recurrent_counts(label, engine, kernels, per_call, calls=None):
+    """Launches since the last reset: ``per_call`` SWIS a model call (the
+    engine's, or ``calls``) and no paged launch (no block arena)."""
+    counts = {kern.name: kern.launches for kern in kernels}
+    if calls is None:
+        check_dispatches(label, engine)
+        calls = engine.model_calls()
+    check(counts == {"swis_matmul": per_call * calls, "paged_attention": 0},
+          f"{label}: launches {counts} != {per_call} SWIS x {calls} model "
+          f"calls and no paged launch")
+    return counts
+
+
+def recurrent_serve(dev, card, kernels, label, cfg, qcfg, params, traffic,
+                    max_len):
+    """The contiguous fallback at full width and depth: ``traffic``
+    [(prompt, n_tokens)] through ``ContinuousBatchingEngine`` on 4 slots
+    with ``prefix_cache=True`` asked for (the engine must fall back:
+    no prefix cache, contiguous rows, no bucket padding), launches per
+    model call checked, wall ms per step and a profiled decode window;
+    then ``DecodeEngine`` at T 0.7 against the continuous engine's
+    ``generate`` on 4 of the 64-token prompts. Returns (engine config,
+    launches by path)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import (ContinuousBatchingEngine, DecodeEngine,
+                                   EngineConfig)
+
+    ecfg = EngineConfig(n_slots=4, max_len=max_len, packed=True,
+                        quant_cfg=qcfg, prefix_cache=True)
+    eng = ContinuousBatchingEngine(cfg, params, ecfg, device=dev)
+    check(eng.prefix_cache is None and eng.cache.block_size is None
+          and not eng.bucket_prompts, f"{label}: the engine did not fall "
+          f"back to contiguous rows without bucket padding")
+    per_call = swis_per_call(eng.model)
+    check(per_call == SWIS_PER_CALL[cfg.name], f"{label}: {per_call} SWIS "
+          f"GEMMs a model call, expected {SWIS_PER_CALL[cfg.name]}")
+    for kern in kernels:
+        kern.launches = 0
+    toks, steps, wall, _ = drive(eng, traffic)
+    counts = recurrent_counts(label, eng, kernels, per_call)
+    by_path = {f"{label} contiguous engine": counts}
+    for t, (_, n) in zip(toks, traffic):
+        check(len(t) == n and int(t.min()) >= 0 and int(t.max()) < cfg.vocab,
+              f"{label}: bad token output {t}")
+    print(f"phase {label} on {card}: {len(traffic)} requests, {steps} steps "
+          f"at {wall:.2f} ms/step wall; dispatches prefill "
+          f"{eng.n_prefill_calls}, decode {eng.n_decode_steps}; launches "
+          f"{counts} = {per_call} SWIS per model call, no paged launch; "
+          f"prefix cache off, contiguous rows, no bucket padding")
+    four = [p for p, _ in traffic if len(p) == 64][:4]
+    breakdown(eng, four)
+
+    batch = np.stack(four)
+    dec = DecodeEngine(cfg, params, max_len=max_len, batch=4, packed=True,
+                       quant_cfg=qcfg, device=dev)
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    out = dec.generate(batch, 16, temperature=0.7, seed=5)
+    torch.cuda.synchronize()
+    dec_wall = (time.perf_counter() - t0) * 1e3 / 16
+    by_path[f"{label} DecodeEngine T=0.7"] = recurrent_counts(
+        f"{label} DecodeEngine", dec, kernels, per_call, calls=16)
+    same_tokens(f"{label} DecodeEngine T=0.7 vs ContinuousBatchingEngine."
+                f"generate", list(out[:, 64:]),
+                list(eng.generate(batch, 16, temperature=0.7,
+                                  seed=5)[:, 64:]),
+                [(p, 16) for p in batch], [])
+    print(f"  {label} DecodeEngine T=0.7: 16 lockstep steps at {dec_wall:.2f} "
+          f"ms/step wall, tokens equal to ContinuousBatchingEngine.generate")
+    return ecfg, by_path
+
+
+def cpu_cut_check(dev, label, cfg, params, ecfg, traffic, n_layers):
+    """``traffic`` at an ``n_layers`` cut of ``params``: greedy tokens on
+    the card equal the CPU plain path's."""
+    from repro_torch.serve import ContinuousBatchingEngine
+
+    t0 = time.perf_counter()
+    cfgc, cut, cut_cpu = layer_cut(cfg, params, n_layers)
+    got = drive(ContinuousBatchingEngine(cfgc, cut, ecfg, device=dev),
+                traffic)[0]
+    cpu = ContinuousBatchingEngine(cfgc, cut_cpu, ecfg, device="cpu")
+    want = drive(cpu, traffic)[0]
+    same_tokens(f"{label} ({n_layers}-layer cut) vs the CPU plain path", got,
+                want, traffic, [("card", cpu.model, cut, dev),
+                                ("cpu", cpu.model, cut_cpu, "cpu")])
+    print(f"  {label}: {len(traffic)} requests (prompts of "
+          f"{sorted({len(p) for p, _ in traffic})} tokens) at a {n_layers}-"
+          f"layer cut ({cfgc.n_layers} layers: {depth_desc(cfgc)}): greedy "
+          f"tokens equal on the card and the CPU plain path (CPU "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+
+def depth_desc(cfg):
+    """'8 x rec/rec/attn_local + tail rec/rec': a config's layers."""
+    from repro_torch.models.model import Model
+
+    m = Model(cfg)
+    return (f"{m.n_units} x {'/'.join(m.unit)}"
+            + (f" + tail {'/'.join(m.tail)}" if m.tail else ""))
+
+
+def griffin_phase(dev, card, kernels):
+    """Phase 8 (a)-(d) and (f) on recurrentgemma-2b at its published widths
+    and depth. Returns (launches by path, (b)'s kernel timings)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import ContinuousBatchingEngine, EngineConfig
+
+    cfg, qcfg, params, line = packed_init(dev, GRIFFIN_ARCH)
+    gc_ = cfg.griffin
+    print(f"phase 8 (a): {GRIFFIN_ARCH} ({cfg.n_layers} layers: "
+          f"{depth_desc(cfg)}; d_model {cfg.d_model}, lru_width "
+          f"{gc_.lru_width}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+          f"head of {cfg.head_dim}, window {gc_.window}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, tied embeddings) on {card}: {line}")
+    perf = recurrent_kernel_phase(dev, card)
+
+    # (c) phase 4's traffic through the contiguous fallback
+    reqs = prompts(cfg.vocab)
+    _, by_path = recurrent_serve(dev, card, kernels, "8 (c)", cfg, qcfg,
+                                 params, [(p, 32) for p in reqs], max_len=128)
+
+    # (d) one prompt past the local-attention window: the ring wraps
+    long = np.random.default_rng(4).integers(
+        0, cfg.vocab, WINDOW_PROMPT).astype(np.int32)
+    wcfg = EngineConfig(n_slots=1, max_len=2176, packed=True, quant_cfg=qcfg)
+    eng = ContinuousBatchingEngine(cfg, params, wcfg, device=dev)
+    for kern in kernels:
+        kern.launches = 0
+    toks, pre, dec = serve(eng, [long], 16)
+    by_path["8 (d) past the window"] = recurrent_counts(
+        "8 (d)", eng, kernels, SWIS_PER_CALL[GRIFFIN_ARCH])
+    pos = eng.cache.tree["blocks"]["sub2_attn_local"]["pos"][:, 0].cpu()
+    w = gc_.window
+    last = WINDOW_PROMPT + 16 - 2  # the last fed token's position
+    check(pos.shape[-1] == w and int(pos.max()) == last
+          and int(pos.min()) == last - w + 1
+          and bool((pos % w == torch.arange(w)).all()),
+          f"8 (d): the local ring does not hold the last {w} positions in "
+          f"ring order (pos {int(pos.min())}..{int(pos.max())})")
+    check(len(toks[0]) == 16, f"8 (d): {len(toks[0])} tokens")
+    print(f"phase 8 (d) on {card}: a {WINDOW_PROMPT}-token prompt, 16 "
+          f"tokens, max_len 2176: {eng.n_prefill_calls} prefill and "
+          f"{eng.n_decode_steps} decode calls; the prefill step (which also "
+          f"decodes) {1e3 * sum(pre):.1f} ms, {len(dec)} decode-only steps "
+          f"at {1e3 * sum(d for d, _ in dec) / len(dec):.2f} ms/step; "
+          f"every attn_local ring ({w} slots) holds positions "
+          f"{last - w + 1}..{last} with slot == pos % {w}")
+    del eng
+
+    # the CPU plain path at a 4-layer cut: two of (c)'s prompts and (d)'s
+    cpu_cut_check(dev, "8 (c) and (d)", cfg, params,
+                  EngineConfig(n_slots=3, max_len=2176, packed=True,
+                               quant_cfg=qcfg),
+                  [(reqs[0], 6), (reqs[1], 6), (long, 6)], 4)
+
+    # (f) the launcher, in this process: it draws and packs its own
+    # weights one layer at a time, as a user's run does
+    del params
+    gc.collect()
+    argv = ["--arch", GRIFFIN_ARCH, "--packed", "--requests", "4",
+            "--prompt-len", "64", "--tokens", "16", "--n-slots", "4",
+            "--metrics-every", "0"]
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    report, eng = launcher.run(launcher.parse_args(argv))
+    by_path["8 (f) launcher"] = recurrent_counts(
+        "8 (f) launcher", eng, kernels, SWIS_PER_CALL[GRIFFIN_ARCH])
+    # 19 stacked GEMM leaves (6 + 6 + 7 a unit) and 12 in the 2 tail layers
+    check(report["packed_weights"] == 31, f"8 (f): the launcher packed "
+          f"{report['packed_weights']} GEMM leaves, expected 31")
+    print(f"phase 8 (f) on {card}: python -m repro_torch.launch.serve "
+          f"{' '.join(argv)} in {time.perf_counter() - t0:.1f} s (its own "
+          f"init and pack included); report {json.dumps(report)}")
+    del eng
+    return by_path, perf
+
+
+def mamba_phase(dev, card, kernels):
+    """Phase 8 (a) and (e) on mamba2-2.7b at its published widths and
+    depth. Returns the launches by path."""
+    import numpy as np
+    from repro_torch.serve import EngineConfig
+
+    cfg, qcfg, params, line = packed_init(dev, MAMBA_ARCH)
+    mc = cfg.mamba2
+    print(f"phase 8 (a): {MAMBA_ARCH} ({cfg.n_layers} layers: "
+          f"{depth_desc(cfg)}; d_model {cfg.d_model}, d_inner "
+          f"{mc.expand * cfg.d_model}, {mc.expand * cfg.d_model // mc.head_dim}"
+          f" heads of {mc.head_dim}, d_state {mc.d_state}, chunk {mc.chunk}, "
+          f"vocab {cfg.padded_vocab}) on {card}: {line}")
+    reqs = prompts(cfg.vocab)
+    long = np.random.default_rng(5).integers(
+        0, cfg.vocab, MAMBA_LONG_PROMPT).astype(np.int32)
+    pad = -MAMBA_LONG_PROMPT % mc.chunk
+    print(f"  the {MAMBA_LONG_PROMPT}-token prompt prefills as "
+          f"{(MAMBA_LONG_PROMPT + pad) // mc.chunk} chunks of {mc.chunk}, "
+          f"the last with {pad} dt = 0 padding steps")
+    _, by_path = recurrent_serve(
+        dev, card, kernels, "8 (e)", cfg, qcfg, params,
+        [(p, 32) for p in reqs] + [(long, 16)], max_len=640)
+    cpu_cut_check(dev, "8 (e)", cfg, params,
+                  EngineConfig(n_slots=3, max_len=640, packed=True,
+                               quant_cfg=qcfg),
+                  [(reqs[0], 6), (reqs[1], 6), (long, 6)], 2)
+    del params
+    return by_path
+
+
 def main() -> int:
     try:
         import torch
@@ -1577,6 +1915,21 @@ def main() -> int:
         by_path.update(moe_paths)
         elapsed["7"] = time.perf_counter() - t0
         print(f"[phase 7 done: {elapsed['7']:.1f} s]")
+
+        # 8. the recurrent families at full width and depth, one at a time
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        griffin_paths, recurrent = griffin_phase(dev, card, kernels)
+        by_path.update(griffin_paths)
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path.update(mamba_phase(dev, card, kernels))
+        perf["swis_matmul"]["max_abs_err"] = max(
+            [perf["swis_matmul"]["max_abs_err"]]
+            + [p["max_abs_err"] for p in recurrent.values()])
+        elapsed["8"] = time.perf_counter() - t0
+        print(f"[phase 8 done: {elapsed['8']:.1f} s]")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1606,6 +1959,19 @@ def main() -> int:
         "timed": (f"one {MOE_ARCH} decode layer's 3 expert stacks (E 64) at "
                   f"M=4, fp32 x, by CUDA events behind a spin kernel; "
                   f"library: torch.bmm over the dequantized float32 stack")}
+    # the recurrent families' layers (phase 8 (b)), by CUDA events behind a
+    # spin kernel; library: torch.matmul on the dense fp32 weights
+    rows[0]["recurrent_layers"] = {
+        label: {k: p[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "max_abs_err")}
+        for label, p in recurrent.items()}
+    rows[1]["qwen2_moe_decode"] = {
+        **{k: experts["paged_decode"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "max_abs_err")},
+        "timed": (f"one {MOE_ARCH} decode launch (B 4, 16 heads of Dh 128, "
+                  f"12 logical blocks, fp32 cache) by CUDA events behind a "
+                  f"spin kernel; library: SDPA over the gathered K/V")}
     print(f"kernel times from: {sorted(TIMING_SOURCE)}; "
           f"total {time.perf_counter() - t_start:.1f} s on {card} (phases "
           + ", ".join(f"{k} {v:.1f} s" for k, v in elapsed.items()) + ")")

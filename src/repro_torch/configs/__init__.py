@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get_config('<arch-id>')`` returns the
 exact published config, ``get_smoke('<arch-id>')`` the reduced same-family
-smoke config. Only the architectures the port serves so far are listed
-(the dense family and the MoE family)."""
+smoke config. Only the architectures the port serves so far are listed:
+the dense family, the MoE family, and the recurrent families Griffin
+(recurrentgemma-2b) and Mamba2 (mamba2-2.7b)."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +18,8 @@ _MODULES = {
     "deepseek-7b": "deepseek_7b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "dbrx-132b": "dbrx_132b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,13 +1,17 @@
-"""Top-level model for the dense and MoE families (PyTorch port of
-``repro.models.model``): embedding -> layer stack -> norm -> unembed, with
-the serving entry points ``prefill``, ``prefill_bucketed``,
+"""Top-level model for the dense, MoE, Griffin and Mamba2 families (PyTorch
+port of ``repro.models.model``): embedding -> layer stack -> norm ->
+unembed, with the serving entry points ``prefill``, ``prefill_bucketed``,
 ``prefill_chunk``, ``decode_step``, ``mixed_step`` and ``verify_step``.
 
-The reference scans its stacked layer axis; here the layers are a Python
-loop over that axis, each layer reading its slice (a view) of the stacked
-parameter and cache tensors, so cache writes land in the stacked tensors in
-place. ``apply`` returns the MoE blocks' load-balancing aux summed over
-the layers, as the reference does; the serving entry points ignore it.
+The depth is ``n_units`` repetitions of the family's pattern unit, stacked
+under ``"blocks"``, plus the unrolled ``tail`` layers that remain (Griffin's
+26 layers are 8 units of (rec, rec, attn_local) and 2 tail rec layers),
+each under ``"tail"`` by its own key. The reference scans the stacked
+axis; here the units are a Python loop over it, each reading its slice (a
+view) of the stacked parameter and cache tensors, so cache writes land in
+the stacked tensors in place. ``apply`` returns the MoE blocks'
+load-balancing aux summed over the layers, as the reference does; the
+serving entry points ignore it.
 """
 from __future__ import annotations
 
@@ -32,8 +36,7 @@ class Model:
         self.unit = tfm.pattern_for(cfg)
         u = len(self.unit)
         self.n_units = cfg.n_layers // u
-        if cfg.n_layers % u:
-            raise NotImplementedError("tail layers are not ported yet")
+        self.tail = tuple(self.unit[:cfg.n_layers % u])
 
     # -- parameter / cache trees (placeholders) ---------------------------
 
@@ -41,9 +44,13 @@ class Model:
         cfg = self.cfg
         unit_tree = {f"sub{i}_{kind}": tfm.build_block(cfg, kind)
                      for i, kind in enumerate(self.unit)}
-        return {"embed": build_embed(cfg),
+        tree = {"embed": build_embed(cfg),
                 "blocks": pp.stack(unit_tree, self.n_units),
                 "final_norm": build_norm(cfg.d_model)}
+        if self.tail:
+            tree["tail"] = {f"tail{i}_{kind}": tfm.build_block(cfg, kind)
+                            for i, kind in enumerate(self.tail)}
+        return tree
 
     def build_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                     per_slot: bool = False) -> dict:
@@ -54,7 +61,13 @@ class Model:
             f"sub{i}_{kind}": tfm.build_block_cache(self.cfg, kind, batch,
                                                     max_len, dtype, per_slot)
             for i, kind in enumerate(self.unit)}
-        return {"blocks": pp.stack(unit_cache, self.n_units)}
+        cache = {"blocks": pp.stack(unit_cache, self.n_units)}
+        if self.tail:
+            cache["tail"] = {
+                f"tail{i}_{kind}": tfm.build_block_cache(
+                    self.cfg, kind, batch, max_len, dtype, per_slot)
+                for i, kind in enumerate(self.tail)}
+        return cache
 
     # -- forward ------------------------------------------------------------
 
@@ -83,19 +96,26 @@ class Model:
         else:
             positions = int(cache_index) + ar
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        # (params, cache, key, kind) of every layer: the stacked units' in
+        # depth order, then the tail's
+        layers = []
         for i in range(self.n_units):
             unit_params = _layer(params["blocks"], i)
             unit_cache = (_layer(cache["blocks"], i) if cache is not None
                           else None)
-            for j, kind in enumerate(self.unit):
-                key = f"sub{j}_{kind}"
-                x, _, aux = tfm.block_apply(
-                    unit_params[key], x, cfg, kind, positions=positions,
-                    cache=unit_cache[key] if unit_cache is not None else None,
-                    cache_index=cache_index, block_tables=block_tables,
-                    attend_cache=attend_cache, paged=paged, q_lens=q_lens)
-                if "moe_aux" in aux:
-                    aux_total = aux_total + aux["moe_aux"]
+            layers += [(unit_params, unit_cache, f"sub{j}_{kind}", kind)
+                       for j, kind in enumerate(self.unit)]
+        layers += [(params["tail"], cache["tail"] if cache is not None
+                    else None, f"tail{j}_{kind}", kind)
+                   for j, kind in enumerate(self.tail)]
+        for lp, lc, key, kind in layers:
+            x, _, aux = tfm.block_apply(
+                lp[key], x, cfg, kind, positions=positions,
+                cache=lc[key] if lc is not None else None,
+                cache_index=cache_index, block_tables=block_tables,
+                attend_cache=attend_cache, paged=paged, q_lens=q_lens)
+            if "moe_aux" in aux:
+                aux_total = aux_total + aux["moe_aux"]
         if last_index is not None:
             b = x.shape[0]
             idx = torch.as_tensor(last_index, device=x.device).long()

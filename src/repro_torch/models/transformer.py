@@ -1,11 +1,15 @@
-"""Block assembly (PyTorch port of ``repro.models.transformer``) for the
-dense and MoE families:
+"""Block assembly (PyTorch port of ``repro.models.transformer``): every
+family is a repeating pattern unit of blocks, stacked over depth, with any
+remainder layers unrolled as a tail (``models.model``). Ported kinds:
 
-  attn  pre-norm self-attention + MLP                 (dense)
-  moe   self-attention + mixture-of-experts FFN      (qwen2-moe / dbrx)
+  attn        pre-norm self-attention + MLP               (dense)
+  moe         self-attention + mixture-of-experts FFN     (qwen2-moe / dbrx)
+  attn_local  sliding-window self-attention + MLP         (griffin)
+  rec         RG-LRU temporal mix + MLP                   (griffin)
+  mamba       Mamba-2 SSD mixer (no MLP)                  (mamba2)
 
-The other block kinds (RG-LRU, Mamba, encoder, local and cross-attention)
-are not ported yet."""
+so the dense, MoE, Griffin and Mamba2 families are served. The encoder
+(``enc``) and cross-attention (``self_cross``) kinds are not ported yet."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -15,10 +19,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import build_mlp, build_norm, mlp_apply, norm_apply
 from repro_torch.models.params import P
 
-_KINDS = ("attn", "moe")
+_KINDS = ("attn", "moe", "attn_local", "rec", "mamba")
 
 
 def pattern_for(cfg: ArchConfig) -> Tuple[str, ...]:
@@ -26,6 +32,10 @@ def pattern_for(cfg: ArchConfig) -> Tuple[str, ...]:
         return ("attn",)
     if cfg.family == "moe":
         return ("moe",)
+    if cfg.family == "griffin":
+        return cfg.griffin.pattern
+    if cfg.family == "mamba2":
+        return ("mamba",)
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
 
@@ -37,15 +47,29 @@ def _ported(kind: str) -> None:
 def build_block(cfg: ArchConfig, kind: str) -> dict:
     _ported(kind)
     d = cfg.d_model
-    ffn = ({"mlp": build_mlp(cfg)} if kind == "attn"
-           else {"moe": moe_mod.build_moe(cfg)})
+    if kind == "mamba":
+        return {"ln": build_norm(d), "mixer": ssm_mod.build_mamba(cfg)}
+    if kind == "rec":
+        return {"ln1": build_norm(d), "rec": rglru_mod.build_rglru_block(cfg),
+                "ln2": build_norm(d), "mlp": build_mlp(cfg)}
+    ffn = ({"moe": moe_mod.build_moe(cfg)} if kind == "moe"
+           else {"mlp": build_mlp(cfg)})
     return {"ln1": build_norm(d), "attn": attn_mod.build_attention(cfg),
             "ln2": build_norm(d), **ffn}
 
 
 def build_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                       dtype, per_slot: bool = False) -> dict:
-    _ported(kind)  # both kinds keep the standard attention cache
+    """The attention kinds keep K/V and a position plane (``attn_local``
+    a ring of ``min(max_len, window)`` positions); ``rec`` and ``mamba``
+    keep their recurrent state, with no position plane."""
+    _ported(kind)
+    if kind == "rec":
+        return rglru_mod.build_rglru_cache(cfg, batch, dtype)
+    if kind == "mamba":
+        return ssm_mod.build_mamba_cache(cfg, batch, dtype)
+    if kind == "attn_local":
+        max_len = min(max_len, cfg.griffin.window)
     c = attn_mod.build_cache(cfg, batch, max_len, dtype)
     cache_len = c["k"].shape[1]
     # position slots start invalid (-1) so unwritten entries are masked
@@ -64,13 +88,24 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 attend_cache: bool = False, paged: bool = False,
                 q_lens: Optional[torch.Tensor] = None):
     """Returns (x, cache, aux): ``aux`` holds ``moe_aux`` for a moe block,
-    and is empty otherwise."""
+    and is empty otherwise. A cached block updates ``cache`` in place."""
     _ported(kind)
+    if kind == "mamba":
+        h, cache = ssm_mod.mamba_apply(p["mixer"], norm_apply(p["ln"], x, cfg),
+                                       cfg, cache)
+        return x + h, cache, {}
+    if kind == "rec":
+        h, cache = rglru_mod.rglru_apply(p["rec"], norm_apply(p["ln1"], x, cfg),
+                                         cfg, cache)
+        x = x + h
+        x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg)
+        return x, cache, {}
+    window = cfg.griffin.window if kind == "attn_local" else None
     h, cache = attn_mod.attention_apply(
         p["attn"], norm_apply(p["ln1"], x, cfg), cfg, positions=positions,
-        causal=cfg.causal, window=None, cache=cache, cache_index=cache_index,
-        block_tables=block_tables, attend_cache=attend_cache, paged=paged,
-        q_lens=q_lens)
+        causal=cfg.causal, window=window, cache=cache,
+        cache_index=cache_index, block_tables=block_tables,
+        attend_cache=attend_cache, paged=paged, q_lens=q_lens)
     x = x + h
     aux = {}
     if kind == "moe":

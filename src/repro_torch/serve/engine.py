@@ -111,7 +111,11 @@ class ContinuousBatchingEngine:
     ``prefill_backlog`` groups in flight), ``fused_step`` (the chunk and the
     decode batch in one ``mixed_step`` launch), ``spec_decode`` (``spec_k``
     drafts from the model cut to ``draft_slices`` bit-planes, one verify
-    launch, token-exact against plain decode).
+    launch, token-exact against plain decode). Families whose caches are
+    not full-length attention caches (Griffin, Mamba2) always take the
+    contiguous rows, with no bucket padding: prompts prefill in groups of
+    one exact length, so no recurrent row sees a pad token; the three
+    options that need the block arena raise for them.
 
     Observability, as in the reference: ``metrics()`` is one snapshot of
     the phase timers (``step.*_s``), counters (``step.model_dispatches``,

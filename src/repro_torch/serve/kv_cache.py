@@ -15,10 +15,15 @@ means "invalid" to the attention mask.
 
 **Contiguous mode** (``block_size=None``): one cache tree whose batch axis
 is the slot axis, each slot a row of ``max_len`` positions; prefill fills a
-fresh tree and :meth:`SlotKVCache.write_slots` copies its rows in.
+fresh tree and :meth:`SlotKVCache.write_slots` copies its rows in. It
+serves the families whose caches are not full-length attention caches:
+recurrent state (Griffin's ``rec``, Mamba2's ``mamba``), which has no
+position plane, and window-truncated rings (``attn_local``). The slot axis
+is 1 under ``"blocks"`` (after the stacked-layers axis) and 0 under
+``"tail"``, whose layers are unstacked.
 
-Either way each slot has its own position plane, and attention admits only
-entries whose ``pos`` is valid (>= 0).
+Each slot's attention leaves have their own position plane, and attention
+admits only entries whose ``pos`` is valid (>= 0).
 
 Speculative decode writes K/V for proposed tokens into a slot's owned
 blocks before it knows which survive, and needs no rollback: rejected
@@ -40,6 +45,11 @@ import numpy as np
 import torch
 
 from repro_torch.models import params as pp
+
+
+# slot axis per top-level cache subtree: the stacked "blocks" leaves carry
+# a leading layer axis, the unrolled "tail" leaves do not
+_SLOT_AXIS = {"blocks": 1, "tail": 0}
 
 
 def _is_attn_cache(d) -> bool:
@@ -74,7 +84,9 @@ class SlotKVCache:
     @staticmethod
     def supports_blocks(model, max_len: int) -> bool:
         """Block mode applies iff every cache leaf is a standard attention
-        cache spanning the full ``max_len``."""
+        cache spanning the full ``max_len``, stacked under ``"blocks"``
+        (the block-mode helpers walk that subtree only): no recurrent
+        state, no window-truncated ring, no tail."""
         spec = model.build_cache(1, max_len, per_slot=True)
         for key, sub in spec.items():
             if key != "blocks":
@@ -101,22 +113,31 @@ class SlotKVCache:
         if self.block_size is not None:
             raise ValueError("write_slots is for the contiguous mode")
         idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
-        for name, sub in self.tree["blocks"].items():
-            for leaf, live in sub.items():
-                live[:, idx] = slot_tree["blocks"][name][leaf]
+        for key, sub in self.tree.items():
+            for name, leaves in sub.items():
+                for leaf, live in leaves.items():
+                    # every leaf, the recurrent state's too
+                    if _SLOT_AXIS[key] == 1:
+                        live[:, idx] = slot_tree[key][name][leaf]
+                    else:
+                        live[idx] = slot_tree[key][name][leaf]
 
     @staticmethod
     def mask_pos_tail(slot_tree, valid_lens: Sequence[int]):
         """Invalidate (-1) each row's pos entries at index >=
         ``valid_lens[r]``: bucket-padded prefill records positions for its
-        pad tokens too, and they must never enter an attention mask.
-        Updates ``slot_tree`` in place and returns it."""
-        for sub in slot_tree["blocks"].values():
-            pos = sub["pos"]  # (layers, g, length)
-            valid = torch.as_tensor(np.asarray(valid_lens, np.int64),
-                                    device=pos.device)
-            idx = torch.arange(pos.shape[-1], device=pos.device)
-            pos.masked_fill_(~(idx[None, :] < valid[:, None])[None], -1)
+        pad tokens too, and they must never enter an attention mask. Only
+        position planes change; recurrent state has none. Updates
+        ``slot_tree`` in place and returns it."""
+        for sub in slot_tree.values():
+            for leaves in sub.values():
+                pos = leaves.get("pos")  # (layers, g, length) or (g, length)
+                if pos is None:
+                    continue
+                valid = torch.as_tensor(np.asarray(valid_lens, np.int64),
+                                        device=pos.device)
+                idx = torch.arange(pos.shape[-1], device=pos.device)
+                pos.masked_fill_(~(idx[None, :] < valid[:, None]), -1)
         return slot_tree
 
     # -- block tables -----------------------------------------------------

@@ -188,6 +188,66 @@ def test_moe_engine_on_card_matches_cpu_path(cuda_device):  # noqa: F811
         np.testing.assert_array_equal(a, b)
 
 
+def test_swis_kernel_recurrent_shapes(cuda_device):  # noqa: F811
+    """The recurrent families' GEMM shapes at their published widths: K =
+    7680 (Griffin's MLP wo) and 5120 (Mamba2's out_proj), N = 10576
+    (Mamba2's in_proj, not a multiple of the 32-column tile) and 256
+    (Griffin's one KV head), at M = 1, 4 and 256, fp32 x, 4 planes, group
+    4, against the plain version (rtol 1e-5, atol 1e-5*max|ref|)."""
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    for k, n in ((7680, 2560), (5120, 2560), (2560, 10576), (2560, 256)):
+        w = torch.randn((k, n), generator=g, device=cuda_device) * 0.05
+        pw = packing.pack(swis.quantize(w, swis.QuantConfig(
+            method="swis", n_shifts=4, group_size=4)))
+        for m in (1, 4, 256):
+            x = torch.randn((m, k), generator=g, device=cuda_device)
+            before = sm.KERNEL.launches
+            got = ops.swis_matmul(x, pw)
+            assert sm.KERNEL.launches == before + 1
+            want = ref.swis_matmul_ref(x, pw.sign_plane, pw.mask_planes,
+                                       pw.shifts, pw.scale.reshape(-1).expand(n),
+                                       group=4)
+            _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-2.7b"])
+def test_recurrent_engine_on_card_matches_cpu_path(cuda_device, arch):  # noqa: F811
+    """The Griffin and Mamba2 smoke models, packed, through the contiguous
+    fallback: the continuous engine (greedy, prompts of unequal lengths,
+    Griffin's past its 8-token window) and ``DecodeEngine`` (T 0.7) give
+    the CPU path's tokens on the card, with one SWIS launch per GEMM per
+    model call and no paged launch."""
+    from repro_torch.serve import DecodeEngine
+
+    cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
+    model = Model(cfg)
+    per_call = sum({"rec": 6, "attn_local": 7, "mamba": 2}[k]
+                   for k in list(model.unit) * model.n_units + list(model.tail))
+    params = pp.init_params(model.build(), torch.Generator().manual_seed(4),
+                            device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (23, 5, 11, 11, 1)]
+    batch = rng.integers(0, cfg.vocab, (3, 9)).astype(np.int32)
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        eng = ContinuousBatchingEngine(
+            cfg, params, EngineConfig(max_len=48, n_slots=2, packed=True,
+                                      prefix_cache=True), device=dev)
+        assert eng.prefix_cache is None and eng.cache.block_size is None
+        sm.KERNEL.launches = pa.KERNEL.launches = 0
+        rids = [eng.submit(p, SamplingParams(max_tokens=6)) for p in prompts]
+        out = eng.drain()
+        if dev != "cpu":
+            assert sm.KERNEL.launches == per_call * eng.model_calls()
+            assert pa.KERNEL.launches == 0
+        dec = DecodeEngine(cfg, params, max_len=24, batch=3, packed=True,
+                           device=dev)
+        outs.append([out[r] for r in rids]
+                    + list(dec.generate(batch, 8, temperature=0.7, seed=2)))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
 # -- edges of the kernels' designs: row tiles, K splits, column tiles, clusters
 
 

@@ -139,7 +139,7 @@ def test_configs_match_reference():
     defaults (``MoEConfig.e_total`` included), and each ported arch its
     published widths (smollm-135m, phi3-mini-3.8b, deepseek-7b: the
     one-card dense family; qwen2-moe-a2.7b and dbrx-132b: the MoE
-    family)."""
+    family; recurrentgemma-2b and mamba2-2.7b: the recurrent families)."""
     import dataclasses
 
     import repro.configs.base as jbase
@@ -156,7 +156,8 @@ def test_configs_match_reference():
             assert (TQuant(n_shifts=t, double_shift=ds).shift_levels()
                     == JQuant(n_shifts=t, double_shift=ds).shift_levels())
     assert TC.ARCH_IDS == ("phi3-mini-3.8b", "smollm-135m", "deepseek-7b",
-                           "qwen2-moe-a2.7b", "dbrx-132b")
+                           "qwen2-moe-a2.7b", "dbrx-132b",
+                           "recurrentgemma-2b", "mamba2-2.7b")
     for arch in TC.ARCH_IDS:
         for getter in ("get_config", "get_smoke"):
             jc = getattr(C, getter)(arch)

@@ -33,12 +33,13 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(got["modules"]) >= 20, got["modules"]
-    # the observability modules, the launcher, the example and the MoE
-    # family are walked
+    # the observability modules, the launcher, the example, the MoE family
+    # and the recurrent families are walked
     for name in ("serve.metrics", "serve.trace", "serve.costmodel",
                  "perfmodel.pe", "launch.serve", "examples.serve_swis",
                  "models.moe", "configs.qwen2_moe_a2_7b",
-                 "configs.dbrx_132b"):
+                 "configs.dbrx_132b", "models.rglru", "models.ssm",
+                 "configs.recurrentgemma_2b", "configs.mamba2_2_7b"):
         assert f"repro_torch.{name}" in got["modules"], name
     assert got["bad"] == [], f"port imported {got['bad']}"
 
