@@ -53,7 +53,7 @@ Phases, each fatal on failure (exit code 1, and no result line):
    values, scheduler gauges and prefix stats equal the CPU plain path's.
 7. the MoE family at full width, once phases 4-6's tensors are freed:
    qwen2-moe-a2.7b (60 experts top-4 padded to 64, 4 shared) at the first
-   12 of its 24 layers is (a) drawn and packed one layer at a time
+   9 of its 24 layers is (a) drawn and packed one layer at a time
    (seconds, packed GB, peak memory under the float32 tree's size); (b)
    the SWIS kernel's expert-axis launch is held against its plain version
    on layer 0's expert stacks at the decode shapes (rows shared by every
@@ -71,35 +71,67 @@ Phases, each fatal on failure (exit code 1, and no result line):
    counts too). Their tokens are not held to (c)'s: multi-token launches
    take the capacity path, which routes pad rows and drops over-capacity
    choices.
-8. the recurrent families at full width and depth, one at a time, through
-   the contiguous fallback (no block arena, so no paged launch):
-   recurrentgemma-2b (26 layers: 8 units of rec/rec/attn_local and 2 tail
-   rec layers) and mamba2-2.7b (64 layers) are (a) drawn and packed one
-   layer at a time; (b) the SWIS kernel is held against its plain version
-   at a Griffin rec layer's, an attn_local layer's and a Mamba2 layer's
-   GEMMs at M = 4 and Mamba2's in_proj at M = 256, and each is timed
-   beside its bound, the plain version and ``torch.matmul``; (c) Griffin
-   serves phase 4's traffic (32 greedy tokens each, max_len 128) with
-   ``prefix_cache=True`` asked for, and must fall back: 164 SWIS launches
-   per model call, wall and device-busy ms per decode step, and
-   ``DecodeEngine`` at T 0.7 equal to the continuous engine's
-   ``generate``; (d) a 2100-token prompt, past the 2048-token window,
-   wraps every local ring (checked on its position planes); a 4-layer cut
-   (the first unit and the first tail layer) gives the CPU plain path's
-   tokens for two of (c)'s prompts and (d)'s; (e) Mamba2 serves (c)'s
-   traffic and a 600-token prompt (three 256-token SSD chunks, dt = 0
-   padding) at 128 SWIS launches per model call, with the same checks at
-   a 2-layer cut; (f) the launcher serves ``--arch recurrentgemma-2b
-   --packed`` in process and prints its report.
+8. the recurrent families at full width, one at a time, through the
+   contiguous fallback (no block arena, so no paged launch):
+   recurrentgemma-2b at 14 of its 26 layers (4 units of rec/rec/attn_local
+   and its 2 tail rec layers) and mamba2-2.7b at 24 of its 64 layers are
+   (a) drawn and packed one layer at a time; (b) the SWIS kernel is held
+   against its plain version at a Griffin rec layer's, an attn_local
+   layer's and a Mamba2 layer's GEMMs at M = 4 and Mamba2's in_proj at M =
+   256, and each is timed beside its bound, the plain version and
+   ``torch.matmul``; (c) Griffin serves phase 4's traffic (32 greedy tokens
+   each, max_len 128) with ``prefix_cache=True`` asked for, and must fall
+   back: 88 SWIS launches per model call, wall and device-busy ms per
+   decode step, and ``DecodeEngine`` at T 0.7 equal to the continuous
+   engine's ``generate``; (d) a 2100-token prompt, past the 2048-token
+   window, wraps every local ring (checked on its position planes); a
+   4-layer cut (the first unit and the first tail layer) gives the CPU
+   plain path's tokens for two of (c)'s prompts and (d)'s; (e) Mamba2
+   serves (c)'s traffic and a 600-token prompt (three 256-token SSD
+   chunks, dt = 0 padding) at 48 SWIS launches per model call, with the
+   same checks at a 2-layer cut; (f) the launcher serves ``--arch
+   recurrentgemma-2b --packed`` in process at all 26 layers and prints its
+   report.
+9. the VLM and encoder families at full width and depth: (b) the SWIS
+   kernel held against its plain version and timed (CUDA events) at one
+   llama-3.2-vision-11b self layer's 7 GEMMs at M = 4, its cross
+   attention's wk/wv at M = 4096 (4 images of 1024 patches) and one
+   hubert-xlarge layer's 6 GEMMs at M = 2000 (4 clips of 500 frames), and
+   paged attention at the VLM's heads (32 over 8 KV heads, Dh 128) beside
+   SDPA; (a) llama-3.2-vision-11b (40 layers: 8 units of 4 attn and a
+   self_cross layer) drawn and packed one layer at a time, ``xgate`` then
+   set to 0.5 (the reference's 0 would shut the image out); (c) 8 requests
+   on 4 slots, block mode with paged attention, max_len 128, 16 greedy
+   tokens each, 4 of them with their own patches (1024 x 4096 fp32): 280
+   SWIS launches a model call, 32 more for each call that carries patches
+   (only prefill launches do), 40 paged an arena call; a prefix hit on
+   the text requests and none on the image requests; the patches move an
+   image request's first-token logits; wall and device-busy ms per decode
+   step; (d) the fused step and speculative decode on (c)'s traffic,
+   launches checked, and at the one-unit cut (2 requests, one with
+   patches, 4 tokens) equal to the CPU plain path, draft counts too; (f)
+   the launcher serves ``--arch llama-3.2-vision-11b --packed`` text
+   requests in process on these weights; then hubert-xlarge (48 layers)
+   is (a) drawn and packed, and (e) ``Model.apply`` on 4 clips of 500
+   frames makes 288 SWIS launches and no paged one, gives finite logits
+   that see both ways (the last frame moves position 0), bit-identical on
+   a repeat and, at a 2-layer cut, the CPU plain path's within rtol 1e-4
+   of max|logit|. Phase 3 also holds and times SWIS at mistral-large-123b's
+   wq (12288 x 12288) and MLP wo (28672 x 12288), each packed alone.
+
+The CPU checks of phases 4-9 run inside ``plain_weights_once``: the plain
+SWIS version expands each CPU weight once, not once a model call.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (each
-kernel's launches summed over the paths of phases 4 to 8, and by path; the
-SWIS row also carries the expert-axis launch's own numbers and phase 8's
-layers, the paged row the qwen2-moe decode launch); the last is
+kernel's launches summed over the paths of phases 4 to 9, and by path; the
+SWIS row also carries the expert-axis launch's own numbers, phase 8's
+layers and phase 9's shapes, the paged row the qwen2-moe and VLM decode
+launches); the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -193,6 +225,45 @@ def event_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def plain_weights_once():
+    """Within the block, the plain SWIS version expands each weight on the
+    CPU from its bit-planes once: ``kernels.ref.dequant_ref`` of CPU planes
+    is memoized (by the planes' and shifts' storage, shapes and strides,
+    the group, dtype, layout and planes kept; the scale's values are
+    compared on every hit, and the memo holds the planes, so no storage is
+    reused under it). The same dequantized weights enter the same matmul,
+    so the CPU plain path's results are unchanged; at full width the CPU
+    checks pay the expansion once a weight instead of once a model call.
+    Card tensors are never memoized: the plain version's times on the card
+    stay its own. The memo is dropped on leaving the block."""
+    import torch
+    from repro_torch.kernels import ref
+
+    orig = ref.dequant_ref
+    memo = {}
+
+    def dequant(sign_plane, mask_planes, shifts, scale, **kw):
+        if sign_plane.device.type != "cpu":
+            return orig(sign_plane, mask_planes, shifts, scale, **kw)
+        key = tuple((t.data_ptr(), tuple(t.shape), t.stride())
+                    for t in (sign_plane, mask_planes, shifts))
+        key += tuple(sorted(kw.items(), key=lambda kv: kv[0]))
+        hit = memo.get(key)
+        if hit is not None and torch.equal(hit[1], scale):
+            return hit[2]
+        w = orig(sign_plane, mask_planes, shifts, scale, **kw)
+        memo[key] = ((sign_plane, mask_planes, shifts), scale.clone(), w)
+        return w
+
+    ref.dequant_ref = dequant
+    try:
+        yield
+    finally:
+        ref.dequant_ref = orig
+        memo.clear()
 
 
 def bound(nbytes, flops):
@@ -564,7 +635,11 @@ def dense_family_phase(dev, card):
     against the plain version and timed; paged attention at decode (Sq 1)
     and verify-like (Sq 4, q_lens with 0) shapes in three cache dtypes,
     every row against the plain version and repeat runs bit-identical, and
-    the decode launch timed. Returns the largest |err| of each kernel."""
+    the decode launch timed. Then SWIS alone at mistral-large-123b's
+    widest GEMMs, wq (12288 x 12288) and the MLP's wo (28672 x 12288, the
+    largest K yet), at M = 4, each matrix packed alone (the model, ~143 GB
+    packed, does not fit one card), by CUDA events. Returns (the largest
+    |err| of each kernel, the mistral-large timing)."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels.paged_attention import paged_attention_decode
@@ -613,7 +688,19 @@ def dense_family_phase(dev, card):
               f"plain {p['plain_ms']:.4f} ms, bound {p['bound_ms']:.6f} ms "
               f"({p['bound_by']}); Sq 1 and 4 x 3 cache dtypes within 1e-5 "
               f"of the plain version on every row, repeats bit-identical")
-    return errs
+    cfg = configs.get_config("mistral-large-123b")
+    gemms = [(cfg.d_model, cfg.n_heads * cfg.head_dim),
+             (cfg.d_ff, cfg.d_model)]
+    mistral = swis_layer_timing(dev, 4, gemms=gemms, timer=event_ms)
+    errs["swis_matmul"] = max(errs["swis_matmul"], mistral["max_abs_err"])
+    print(f"swis_matmul mistral-large-123b wq {gemms[0][0]}x{gemms[0][1]} and "
+          f"MLP wo {gemms[1][0]}x{gemms[1][1]} at M=4, fp32 x, on {card} "
+          f"(CUDA events behind a spin kernel): kernel {mistral['ms']:.4f} "
+          f"ms, torch.matmul {mistral['library_ms']:.4f} ms, plain "
+          f"{mistral['plain_ms']:.4f} ms, bound {mistral['bound_ms']:.5f} ms "
+          f"({mistral['bound_by']}); max|err| {mistral['max_abs_err']:.3g} "
+          f"against the plain version (rtol 1e-5, atol 1e-5*max|ref|)")
+    return errs, mistral
 
 
 # -- phase 4: the slice at full width ------------------------------------------
@@ -827,11 +914,12 @@ def long_traffic(vocab):
 
 
 def drive(engine, traffic, temperature=0.0, profiled=False):
-    """Submit ``traffic`` [(prompt, n_tokens)] (seed i for request i when
-    sampling) and step to idle. Returns (tokens per request, steps, wall
-    ms per step, device-busy ms per step or None). ``profiled`` runs it
-    under ``torch.profiler`` for the device time, whose wall time is then
-    not the engine's own."""
+    """Submit ``traffic`` [(prompt, n_tokens)] or [(prompt, n_tokens,
+    extra)] (seed i for request i when sampling) and step to idle; request
+    i gets rid i. Returns (tokens per request, steps, wall ms per step,
+    device-busy ms per step or None). ``profiled`` runs it under
+    ``torch.profiler`` for the device time, whose wall time is then not
+    the engine's own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import SamplingParams
@@ -839,8 +927,9 @@ def drive(engine, traffic, temperature=0.0, profiled=False):
     engine.reset()
     rids = [engine.submit(p, SamplingParams(
                 max_tokens=n, temperature=temperature,
-                seed=i if temperature else None))
-            for i, (p, n) in enumerate(traffic)]
+                seed=i if temperature else None),
+                extra=extra[0] if extra else None)
+            for i, (p, n, *extra) in enumerate(traffic)]
     out, steps = {}, 0
     sync = (torch.cuda.synchronize if engine.device.type == "cuda"
             else (lambda: None))
@@ -1238,7 +1327,10 @@ def observability_phase(dev, card, kernels, cfg, params):
 # -- phase 7: the MoE family at full width --------------------------------------
 
 MOE_ARCH = "qwen2-moe-a2.7b"
-MOE_LAYERS = 12  # phase 7's depth: the first 12 of qwen2-moe's 24 layers
+# phase 7's depth: the first 9 of qwen2-moe's 24 layers (below 9 the
+# per-layer packing scratch outgrows the float32 tree packed_init's peak
+# check compares it with)
+MOE_LAYERS = 9
 MOE_PER_LAYER = 10  # SWIS launches a layer: q/k/v/o, 3 shared, 3 expert stacks
 
 
@@ -1466,7 +1558,7 @@ def moe_phase(dev, card, kernels):
     cfg, qcfg, params = moe_init(dev, card)
     perf = expert_phase(dev, card, params, cfg)
 
-    # (c) serving at full width and depth
+    # (c) serving at full width
     base = dict(n_slots=4, block_size=8, packed=True, quant_cfg=qcfg,
                 use_paged_kernel=True, max_len=96)
     eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**base),
@@ -1511,8 +1603,8 @@ def moe_phase(dev, card, kernels):
           f"tokens) equal on the card and the CPU plain path (CPU "
           f"{time.perf_counter() - t0:.1f} s)")
 
-    # (e) the fused step and speculative decode at full width and depth;
-    # their CPU checks at the 1-layer cut take 4 tokens
+    # (e) the fused step and speculative decode at full width; their CPU
+    # checks at the 1-layer cut take 4 tokens
     traffic = [(p, 16) for p in reqs]
     short = [(p, 4) for p in reqs[:2]]
     paths = [("7 (e) fused", dict(prefill_chunk=32, fused_step=True)),
@@ -1576,9 +1668,15 @@ GRIFFIN_ARCH, MAMBA_ARCH = "recurrentgemma-2b", "mamba2-2.7b"
 # MLP's wi, wg and wo; attn_local's q, k, v and o and its MLP's three;
 # mamba's in_proj and out_proj
 SWIS_PER_KIND = {"rec": 6, "attn_local": 7, "mamba": 2}
-# per model call at full depth: Griffin's 18 rec and 8 attn_local layers,
-# Mamba2's 64 mamba layers
-SWIS_PER_CALL = {GRIFFIN_ARCH: 18 * 6 + 8 * 7, MAMBA_ARCH: 64 * 2}
+# phase 8's depths (cut to make room for phase 9, as far as packed_init's
+# peak check stays meaningful): Griffin's first 4 units and its 2 tail
+# layers, Mamba2's first 24 layers
+RECURRENT_DEPTH = {GRIFFIN_ARCH: 14, MAMBA_ARCH: 24}
+# per model call, by (arch, depth): Griffin at 14 layers has 10 rec and 4
+# attn_local layers, at its full 26 (the launcher's) 18 and 8; Mamba2 at
+# 24 layers 24 mamba layers
+SWIS_PER_CALL = {(GRIFFIN_ARCH, 14): 10 * 6 + 4 * 7,
+                 (GRIFFIN_ARCH, 26): 18 * 6 + 8 * 7, (MAMBA_ARCH, 24): 24 * 2}
 # (K, N) of one decode layer's GEMMs at the published widths, in launch order
 RECURRENT_LAYERS = {
     "recurrentgemma-2b rec": [(2560, 2560)] * 3 + [(2560, 7680)] * 2
@@ -1635,7 +1733,7 @@ def recurrent_counts(label, engine, kernels, per_call, calls=None):
 
 def recurrent_serve(dev, card, kernels, label, cfg, qcfg, params, traffic,
                     max_len):
-    """The contiguous fallback at full width and depth: ``traffic``
+    """The contiguous fallback at full width: ``traffic``
     [(prompt, n_tokens)] through ``ContinuousBatchingEngine`` on 4 slots
     with ``prefix_cache=True`` asked for (the engine must fall back:
     no prefix cache, contiguous rows, no bucket padding), launches per
@@ -1655,8 +1753,9 @@ def recurrent_serve(dev, card, kernels, label, cfg, qcfg, params, traffic,
           and not eng.bucket_prompts, f"{label}: the engine did not fall "
           f"back to contiguous rows without bucket padding")
     per_call = swis_per_call(eng.model)
-    check(per_call == SWIS_PER_CALL[cfg.name], f"{label}: {per_call} SWIS "
-          f"GEMMs a model call, expected {SWIS_PER_CALL[cfg.name]}")
+    want = SWIS_PER_CALL[(cfg.name, cfg.n_layers)]
+    check(per_call == want, f"{label}: {per_call} SWIS GEMMs a model call, "
+          f"expected {want}")
     for kern in kernels:
         kern.launches = 0
     toks, steps, wall, _ = drive(eng, traffic)
@@ -1725,14 +1824,17 @@ def depth_desc(cfg):
 
 
 def griffin_phase(dev, card, kernels):
-    """Phase 8 (a)-(d) and (f) on recurrentgemma-2b at its published widths
-    and depth. Returns (launches by path, (b)'s kernel timings)."""
+    """Phase 8 (a)-(d) and (f) on recurrentgemma-2b at its published widths,
+    at its first ``RECURRENT_DEPTH`` layers (4 units and the 2 tail layers;
+    the launcher (f) draws its own weights at the full 26). Returns
+    (launches by path, (b)'s kernel timings)."""
     import numpy as np
     import torch
     from repro_torch.launch import serve as launcher
     from repro_torch.serve import ContinuousBatchingEngine, EngineConfig
 
-    cfg, qcfg, params, line = packed_init(dev, GRIFFIN_ARCH)
+    cfg, qcfg, params, line = packed_init(dev, GRIFFIN_ARCH,
+                                          RECURRENT_DEPTH[GRIFFIN_ARCH])
     gc_ = cfg.griffin
     print(f"phase 8 (a): {GRIFFIN_ARCH} ({cfg.n_layers} layers: "
           f"{depth_desc(cfg)}; d_model {cfg.d_model}, lru_width "
@@ -1755,7 +1857,7 @@ def griffin_phase(dev, card, kernels):
         kern.launches = 0
     toks, pre, dec = serve(eng, [long], 16)
     by_path["8 (d) past the window"] = recurrent_counts(
-        "8 (d)", eng, kernels, SWIS_PER_CALL[GRIFFIN_ARCH])
+        "8 (d)", eng, kernels, SWIS_PER_CALL[(GRIFFIN_ARCH, cfg.n_layers)])
     pos = eng.cache.tree["blocks"]["sub2_attn_local"]["pos"][:, 0].cpu()
     w = gc_.window
     last = WINDOW_PROMPT + 16 - 2  # the last fed token's position
@@ -1792,7 +1894,7 @@ def griffin_phase(dev, card, kernels):
     t0 = time.perf_counter()
     report, eng = launcher.run(launcher.parse_args(argv))
     by_path["8 (f) launcher"] = recurrent_counts(
-        "8 (f) launcher", eng, kernels, SWIS_PER_CALL[GRIFFIN_ARCH])
+        "8 (f) launcher", eng, kernels, SWIS_PER_CALL[(GRIFFIN_ARCH, 26)])
     # 19 stacked GEMM leaves (6 + 6 + 7 a unit) and 12 in the 2 tail layers
     check(report["packed_weights"] == 31, f"8 (f): the launcher packed "
           f"{report['packed_weights']} GEMM leaves, expected 31")
@@ -1804,12 +1906,13 @@ def griffin_phase(dev, card, kernels):
 
 
 def mamba_phase(dev, card, kernels):
-    """Phase 8 (a) and (e) on mamba2-2.7b at its published widths and
-    depth. Returns the launches by path."""
+    """Phase 8 (a) and (e) on mamba2-2.7b at its published widths, at its
+    first ``RECURRENT_DEPTH`` layers. Returns the launches by path."""
     import numpy as np
     from repro_torch.serve import EngineConfig
 
-    cfg, qcfg, params, line = packed_init(dev, MAMBA_ARCH)
+    cfg, qcfg, params, line = packed_init(dev, MAMBA_ARCH,
+                                          RECURRENT_DEPTH[MAMBA_ARCH])
     mc = cfg.mamba2
     print(f"phase 8 (a): {MAMBA_ARCH} ({cfg.n_layers} layers: "
           f"{depth_desc(cfg)}; d_model {cfg.d_model}, d_inner "
@@ -1832,6 +1935,398 @@ def mamba_phase(dev, card, kernels):
                   [(reqs[0], 6), (reqs[1], 6), (long, 6)], 2)
     del params
     return by_path
+
+
+# -- phase 9: the VLM and encoder families at full width --------------------------
+
+VLM_ARCH, ENC_ARCH = "llama-3.2-vision-11b", "hubert-xlarge"
+# SWIS launches of one model call: 7 a layer (q/k/v/o, MLP in/gate/out) for
+# the VLM's 40 layers; a call whose batch carries patches adds xattn's 4 in
+# each of its 8 self_cross layers; hubert's 48 enc layers have 6 (no GLU)
+VLM_PER_CALL, VLM_PATCH_EXTRA, ENC_PER_APPLY = 40 * 7, 8 * 4, 48 * 6
+XGATE = 0.5  # the reference inits xgate to 0: tanh(0) shuts the image out
+VLM_CUT = 5  # the CPU checks' depth: one (attn x 4, self_cross) unit
+# (K, N) of the shapes phase 9 (b) holds and times, in launch order
+VLM_SELF_LAYER = [(4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096),
+                  (4096, 14336), (4096, 14336), (14336, 4096)]
+VLM_XATTN_KV = [(4096, 1024), (4096, 1024)]  # wk, wv over 4 x 1024 patches
+ENC_LAYER = [(1280, 1280)] * 4 + [(1280, 5120), (5120, 1280)]
+
+
+def vlm_traffic(cfg, dev, seed=6):
+    """(c)'s 8 requests of 64 prompt tokens, 16 tokens each: 4 with their
+    own patches (1024 x 4096 fp32 from the seed, on the card) and 4
+    text-only. Text 0 and text 3 share a 32-token prefix, and so does image
+    3, which must not hit it; text 3 arrives last, after text 0 has
+    committed. Returns [(prompt, 16, extra or None)]."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shared = rng.integers(0, cfg.vocab, 32)
+    out = []
+    for kind in ("text", "image", "image", "text", "image", "image", "text",
+                 "text"):
+        p = rng.integers(0, cfg.vocab, 64).astype(np.int32)
+        n_img = sum(e is not None for _, _, e in out)
+        if len(out) in (0, 7) or n_img == 3 and kind == "image":
+            p[:32] = shared
+        extra = None
+        if kind == "image":
+            extra = {"patches": torch.randn(
+                (cfg.vlm.n_patches, cfg.vlm.vision_dim), generator=g,
+                device=dev)}
+        out.append((p, 16, extra))
+    return out
+
+
+def patch_calls(engine):
+    """Count the engine's prefill launches whose batch carries patches (the
+    only launches that run cross-attention): wraps the model's two prefill
+    entry points; returns the live counter."""
+    seen = {"calls": 0}
+    model = engine.model
+    for name in ("prefill_bucketed", "prefill_chunk"):
+        fn = getattr(model, name)
+
+        def counted(params, batch, *a, _fn=fn, **kw):
+            seen["calls"] += "patches" in batch
+            return _fn(params, batch, *a, **kw)
+
+        setattr(model, name, counted)
+    return seen
+
+
+def vlm_counts(label, engine, kernels, seen):
+    """Launches since the last reset against the engine's model calls: 280
+    SWIS a call plus 32 for each call that carried patches, every one
+    through the 2-D entry point, and 40 paged a call over the arena."""
+    counts = {kern.name: kern.launches for kern in kernels}
+    calls, arena_calls = engine.model_calls(), engine.arena_calls()
+    check_dispatches(label, engine)
+    want = VLM_PER_CALL * calls + VLM_PATCH_EXTRA * seen["calls"]
+    check(counts["swis_matmul"] == want, f"{label}: swis_matmul launches "
+          f"{counts['swis_matmul']} != {VLM_PER_CALL} x {calls} model calls "
+          f"+ {VLM_PATCH_EXTRA} x {seen['calls']} calls with patches")
+    check(counts["paged_attention"] == 40 * arena_calls, f"{label}: "
+          f"paged_attention launches {counts['paged_attention']} != 40 x "
+          f"{arena_calls} arena calls")
+    return counts
+
+
+def paged_vlm_phase(dev, card):
+    """(b) Paged attention at the VLM's heads (32 over 8 KV heads, G 4, Dh
+    128): B 4 over 16 logical blocks, decode (Sq 1) and Sq 4 with a zero
+    q_lens, 3 cache dtypes, every row against the plain version (1e-5) and
+    repeat runs bit-identical; the decode launch timed beside SDPA. The
+    kernel is one template a cache dtype (phase 2's ``-Xptxas -v`` lines);
+    the shape sets only its shared memory, printed here."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+
+    err = 0.0
+    for sq, q_lens in ((1, None), (4, [4, 0, 2, 1])):
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            q, k, v, pos, tables, q_pos = arena(dev, hkv=8, g=4, dh=128,
+                                                sq=sq, seed=128 + sq)
+            k, v = k.to(dt), v.to(dt)
+            ql = None if q_lens is None else torch.tensor(
+                q_lens, dtype=torch.int32, device=dev)
+            got = pa.paged_attention_decode(q, k, v, pos, tables, q_pos,
+                                            q_lens=ql)
+            again = pa.paged_attention_decode(q, k, v, pos, tables, q_pos,
+                                              q_lens=ql)
+            check(torch.equal(got, again), f"paged_attention {VLM_ARCH} "
+                  f"heads Sq={sq} {dt}: repeat run differs")
+            want = plain_paged(q, k, v, pos, tables, q_pos, ql, None)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            err = max(err, e)
+            check(bool(torch.isfinite(got).all()) and torch.allclose(
+                got, want, rtol=1e-5, atol=1e-5), f"paged_attention "
+                f"{VLM_ARCH} heads (Hkv 8, G 4, Dh 128) Sq={sq} {dt}: "
+                f"max|err|={e:.3g} (1e-5)")
+    lib = pa.KERNEL.lib()
+    smem = {sq: lib.paged_attention_smem_bytes(0, sq * 4, 128, 8, 16)
+            for sq in (1, 4, 32)}
+    p = paged_timing(dev, nb=16, n_blocks=97, live=(12, 12, 11, 12), hkv=8,
+                     g=4, dh=128, timer=event_ms)
+    p["max_abs_err"] = max(p["max_abs_err"], err)
+    ptxas = [ln.strip() for ln in pa.KERNEL.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"phase 9 (b): paged_attention {VLM_ARCH} decode launch (B=4, 32 "
+          f"heads over 8, G 4, Dh 128, 16 logical blocks, fp32 cache) on "
+          f"{card} (CUDA events behind a spin kernel): kernel "
+          f"{p['ms']:.5f} ms, SDPA {p['library_ms']:.5f} ms, plain "
+          f"{p['plain_ms']:.4f} ms, bound {p['bound_ms']:.6f} ms "
+          f"({p['bound_by']}); Sq 1 and 4 x 3 cache dtypes within 1e-5 of the "
+          f"plain version on every row (max|err| {err:.3g}), repeats "
+          f"bit-identical; dynamic shared memory at 16 logical blocks, fp32 "
+          f"cache: " + ", ".join(f"Sq {k} {v} B" for k, v in smem.items())
+          + "; the kernel's -Xptxas -v lines (one template per cache dtype): "
+          + " | ".join(ptxas))
+    return p
+
+
+def vlm_kernel_phase(dev, card):
+    """(b) The SWIS kernel at the new families' shapes, each held against
+    the plain version (rtol 1e-5, atol 1e-5*max|ref|) and timed by CUDA
+    events behind a spin kernel beside its bound, the plain version and
+    ``torch.matmul``: one VLM self layer's 7 GEMMs at M = 4 (decode),
+    xattn's wk/wv at M = 4096 (4 images of 1024 patches) and one hubert
+    layer's 6 GEMMs at M = 2000 (4 clips of 500 frames); then paged
+    attention at the VLM's heads. Returns {label: timing}."""
+    out = {}
+    for label, m, gemms in ((f"{VLM_ARCH} self layer", 4, VLM_SELF_LAYER),
+                            (f"{VLM_ARCH} xattn wk/wv", 4096, VLM_XATTN_KV),
+                            (f"{ENC_ARCH} layer", 2000, ENC_LAYER)):
+        t0 = time.perf_counter()
+        p = swis_layer_timing(dev, m, gemms=gemms, timer=event_ms)
+        out[f"{label} M={m}"] = p
+        print(f"phase 9 (b): swis_matmul {label} ({len(gemms)} GEMMs at "
+              f"M={m}, fp32 x) on {card} (CUDA events behind a spin kernel): "
+              f"kernel {p['ms']:.4f} ms, torch.matmul {p['library_ms']:.4f} "
+              f"ms, plain {p['plain_ms']:.4f} ms, bound {p['bound_ms']:.5f} "
+              f"ms ({p['bound_by']}); max|err| {p['max_abs_err']:.3g} against "
+              f"the plain version (rtol 1e-5, atol 1e-5*max|ref|) "
+              f"[{time.perf_counter() - t0:.1f} s]")
+    out["paged"] = paged_vlm_phase(dev, card)
+    return out
+
+
+def vlm_phase(dev, card, kernels):
+    """Phase 9 (a)-(d) and (f) on llama-3.2-vision-11b at its published
+    widths and depth (40 layers: 8 units of attn x 4 and self_cross), with
+    ``xgate`` set to 0.5 after packing (a scalar, never packed). (c) 8
+    requests on 4 slots, block mode with paged attention, max_len 128, 16
+    greedy tokens each: launches per model call, a prefix hit on the text
+    requests and none on the image requests, an image request's first
+    logits moved by its patches, wall and device-busy ms per decode step;
+    (d) the fused step (chunk 32) and speculative decode (2-plane drafts)
+    on the same traffic, launches checked, and each at the one-unit cut
+    (2 requests, one with patches, 4 tokens) equal to the CPU plain path,
+    draft counts too; (f) the launcher serving text requests on these
+    weights. Returns (launches by path, phase 9's seconds by step)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.serve import trace as tr
+
+    secs = {}
+    t0 = time.perf_counter()
+    cfg, qcfg, params, line = packed_init(dev, VLM_ARCH)
+    for key, blk in params["blocks"].items():
+        if "xgate" in blk:
+            blk["xgate"].fill_(XGATE)
+    secs["9 (a) VLM"] = time.perf_counter() - t0
+    print(f"phase 9 (a): {VLM_ARCH} ({cfg.n_layers} layers: "
+          f"{depth_desc(cfg)}; d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {cfg.vlm.n_patches} patches of "
+          f"{cfg.vlm.vision_dim}) on {card}: {line}; xgate set to {XGATE}")
+
+    # (c) serving at full width and depth
+    t0 = time.perf_counter()
+    base = dict(n_slots=4, block_size=8, packed=True, quant_cfg=qcfg,
+                use_paged_kernel=True, max_len=128)
+    eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**base),
+                                   device=dev)
+    traffic = vlm_traffic(cfg, dev)
+    images = [i for i, (_, _, ex) in enumerate(traffic) if ex is not None]
+    seen = patch_calls(eng)
+    for kern in kernels:
+        kern.launches = 0
+    toks, steps, wall, _ = drive(eng, traffic)
+    counts = vlm_counts("9 (c)", eng, kernels, seen)
+    by_path = {"9 (c) VLM block engine": counts}
+    hit = {e.rid for e in eng.tracer.events() if e.kind == tr.PREFIX_HIT}
+    stats = eng.prefix_stats()
+    check(hit and not hit & set(images), f"9 (c): prefix hits "
+          f"on requests {sorted(hit)}; the image requests {images} must "
+          f"never hit and a text request must")
+    for t in toks:
+        check(len(t) == 16 and int(t.min()) >= 0 and int(t.max()) < cfg.vocab,
+              f"9 (c): bad token output {t}")
+    # the image moves an image request's first-token logits
+    p0, _, ex0 = traffic[images[0]]
+    batch = {"tokens": torch.as_tensor(p0, device=dev).long()[None]}
+    plain = eng.model.apply(eng.params, batch, last_only=True)[0][0, -1]
+    with_p = eng.model.apply(eng.params, dict(batch, patches=ex0["patches"][
+        None]), last_only=True)[0][0, -1]
+    moved = (with_p - plain).abs().max().item()
+    check(moved > 1e-3 * plain.abs().max().item(), f"9 (c): the patches moved "
+          f"the first-token logits by only {moved:.3g}")
+    # the engine's first token is the patched forward's argmax (up to float
+    # noise between a batch of 2 image rows and this one row)
+    first = int(toks[images[0]][0])
+    top = with_p.max().item()
+    check(with_p[first].item() >= top - 1e-4 * with_p.abs().max().item(),
+          f"9 (c): the engine's first token {first} is not the patched "
+          f"forward's argmax {int(with_p.argmax())}")
+    flips = int(with_p.argmax()) != int(plain.argmax())
+    print(f"phase 9 (c) on {card}: {len(traffic)} requests ({len(images)} "
+          f"with patches), {steps} steps at {wall:.2f} ms/step wall; "
+          f"dispatches prefill {eng.n_prefill_calls} ({seen['calls']} with "
+          f"patches), decode {eng.n_decode_steps}; launches {counts} = "
+          f"{VLM_PER_CALL} SWIS a model call + {VLM_PATCH_EXTRA} a call with "
+          f"patches, 40 paged an arena call; prefix cache {stats['hits']} "
+          f"hits of {stats['lookups']} lookups, on requests {sorted(hit)} "
+          f"(the images {images} never hit); the patches move an image "
+          f"request's first-token logits by {moved:.4g} (max|logit| "
+          f"{plain.abs().max().item():.4g}; argmax "
+          f"{'changed' if flips else 'unchanged'}), and the engine's first "
+          f"token {first} is the patched forward's")
+    breakdown(eng, [p for p, _, ex in traffic if ex is None])
+    del eng
+    secs["9 (c)"] = time.perf_counter() - t0
+
+    # (d) the fused step and speculative decode at full width and depth,
+    # then at the one-unit cut on the card and the CPU plain path
+    t0 = time.perf_counter()
+    cfgc, cut, cut_cpu = layer_cut(cfg, params, n_layers=VLM_CUT)
+    short = [(p, 4, ex) for p, _, ex in (traffic[images[0]], traffic[0])]
+    short_cpu = [(p, n, ex and {"patches": ex["patches"].cpu()})
+                 for p, n, ex in short]
+    paths = [("9 (d) fused", dict(prefill_chunk=32, fused_step=True)),
+             ("9 (d) spec", dict(spec_decode=True, spec_k=3,
+                                 draft_slices=DRAFT_SLICES))]
+    cpu_secs = 0.0
+    for label, opts in paths:
+        ecfg = EngineConfig(**{**base, **opts})
+        eng = ContinuousBatchingEngine(cfg, params, ecfg, device=dev)
+        seen = patch_calls(eng)
+        for kern in kernels:
+            kern.launches = 0
+        got, steps, wall, _ = drive(eng, traffic)
+        counts = vlm_counts(label, eng, kernels, seen)
+        by_path[label] = counts
+        same = sum(bool((a == b).all()) for a, b in zip(got, toks))
+        extra = (f"; spec accepted {eng.spec_accepted} of "
+                 f"{eng.spec_proposed} drafts" if eng.spec_decode else "")
+        print(f"phase {label} on {card}: {steps} steps at {wall:.2f} ms/step "
+              f"wall, {eng.model_calls()} model calls (prefill "
+              f"{eng.n_prefill_calls}, chunk {eng.n_chunk_calls}, mixed "
+              f"{eng.n_mixed_steps}, decode {eng.n_decode_steps}, draft "
+              f"{eng.n_draft_steps}, verify {eng.n_verify_steps}; "
+              f"{seen['calls']} with patches); launches {counts}{extra}; "
+              f"{same} of {len(toks)} requests' tokens equal to (c)'s")
+        del eng
+        card1 = ContinuousBatchingEngine(cfgc, cut, ecfg, device=dev)
+        got1 = drive(card1, short)[0]
+        t1 = time.perf_counter()
+        cpu1 = ContinuousBatchingEngine(cfgc, cut_cpu, ecfg, device="cpu")
+        want1 = drive(cpu1, short_cpu)[0]
+        cpu_secs += time.perf_counter() - t1
+        same_tokens(f"{label} ({VLM_CUT}-layer cut) vs the CPU plain path",
+                    got1, want1, short, [])
+        spec = ((card1.spec_proposed, card1.spec_accepted),
+                (cpu1.spec_proposed, cpu1.spec_accepted))
+        check(spec[0] == spec[1], f"{label} ({VLM_CUT}-layer cut): drafts "
+              f"(proposed, accepted) {spec[0]} on the card, {spec[1]} on the "
+              f"CPU")
+        drafts = (f" and drafts {spec[0]}" if opts.get("spec_decode")
+                  else "")
+        print(f"  {label} at a {VLM_CUT}-layer cut ({depth_desc(cfgc)}), 2 "
+              f"requests (one with patches), 4 tokens: tokens{drafts} "
+              f"equal on the card and the CPU plain path (CPU "
+              f"{time.perf_counter() - t1:.1f} s)")
+        del card1, cpu1
+    del cut, cut_cpu
+    secs["9 (d)"] = time.perf_counter() - t0
+    secs["9 (d) CPU"] = cpu_secs
+
+    # (f) the launcher in this process, on these packed weights: text
+    # requests, the gather path
+    t0 = time.perf_counter()
+    argv = ["--arch", VLM_ARCH, "--packed", "--requests", "4",
+            "--prompt-len", "64", "--tokens", "16", "--n-slots", "4",
+            "--metrics-every", "0"]
+    for kern in kernels:
+        kern.launches = 0
+    report, eng = launcher.run(launcher.parse_args(argv), params=params)
+    calls = eng.model_calls()
+    counts = {kern.name: kern.launches for kern in kernels}
+    check_dispatches("9 (f) launcher", eng)
+    check(counts == {"swis_matmul": VLM_PER_CALL * calls,
+                     "paged_attention": 0}, f"9 (f) launcher: launches "
+          f"{counts} != {VLM_PER_CALL} SWIS x {calls} model calls and no "
+          f"paged launch (text requests, the gather path)")
+    by_path["9 (f) launcher"] = counts
+    secs["9 (f)"] = time.perf_counter() - t0
+    print(f"phase 9 (f) on {card}: python -m repro_torch.launch.serve "
+          f"{' '.join(argv)} with phase 9's packed weights, in "
+          f"{secs['9 (f)']:.1f} s; {calls} model calls, launches {counts}; "
+          f"report {json.dumps(report)}")
+    del eng, params
+    return by_path, secs
+
+
+def encoder_phase(dev, card, kernels):
+    """Phase 9 (a) and (e) on hubert-xlarge at its published widths and
+    depth (48 enc layers): drawn and packed layer by layer, then
+    ``Model.apply`` on 4 clips of 500 frames from the seed: 288 SWIS
+    launches and no paged one, finite logits, attention both ways (the last
+    frame moves position 0's logits), bit-identical on a repeat, and at a
+    2-layer cut the CPU plain path's logits within rtol 1e-4 of
+    max|logit|. Returns (launches, seconds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg, _, params, line = packed_init(dev, ENC_ARCH)
+    print(f"phase 9 (a): {ENC_ARCH} ({cfg.n_layers} layers: "
+          f"{depth_desc(cfg)}; d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, no GLU, LayerNorm, vocab "
+          f"{cfg.vocab}) on {card}: {line}")
+    model = Model(cfg)
+    g = torch.Generator(device=dev).manual_seed(9)
+    frames = torch.randn((4, 500, cfg.d_model), generator=g, device=dev)
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits = model.apply(params, {"frames": frames})[0]
+    torch.cuda.synchronize()
+    apply_ms = (time.perf_counter() - t1) * 1e3
+    counts = {kern.name: kern.launches for kern in kernels}
+    check(counts == {"swis_matmul": ENC_PER_APPLY, "paged_attention": 0},
+          f"9 (e): launches {counts} != {ENC_PER_APPLY} SWIS and no paged "
+          f"launch for one apply")
+    check(tuple(logits.shape) == (4, 500, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"9 (e): logits {tuple(logits.shape)} not finite or misshapen")
+    check(torch.equal(model.apply(params, {"frames": frames})[0], logits),
+          "9 (e): a repeat apply is not bit-identical")
+    moved_frames = frames.clone()
+    moved_frames[:, -1] += 1.0
+    moved = (model.apply(params, {"frames": moved_frames})[0][:, 0]
+             - logits[:, 0]).abs().max().item()
+    check(moved > 1e-4, f"9 (e): the last frame moved position 0's logits "
+          f"by {moved:.3g}: attention is not bidirectional")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.apply(params, {"frames": frames})
+        torch.cuda.synchronize()
+    busy = device_ms(prof)
+    cfg2, cut, cut_cpu = layer_cut(cfg, params, n_layers=2)
+    t1 = time.perf_counter()
+    got = Model(cfg2).apply(cut, {"frames": frames})[0].cpu()
+    want = Model(cfg2).apply(cut_cpu, {"frames": frames.cpu()})[0]
+    top = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, rtol=1e-4, atol=1e-4 * top),
+          f"9 (e) 2-layer cut: max|err| {err:.3g} vs max|logit| {top:.3g}")
+    print(f"phase 9 (e) on {card}: Model.apply on frames (4, 500, "
+          f"{cfg.d_model}): {apply_ms:.1f} ms wall, device busy {busy:.1f} "
+          f"ms (profiled repeat); launches {counts}; logits finite, "
+          f"bit-identical on a repeat; the last frame moves position 0's "
+          f"logits by {moved:.4g}; at a 2-layer cut max|err| {err:.3g} "
+          f"against the CPU plain path (max|logit| {top:.4g}, rtol 1e-4; "
+          f"CPU {time.perf_counter() - t1:.1f} s)")
+    del params, cut, cut_cpu
+    return {"9 (e) encoder apply": counts}, time.perf_counter() - t0
 
 
 def main() -> int:
@@ -1877,14 +2372,16 @@ def main() -> int:
         perf = {"swis_matmul": swis_phase(dev), "paged_attention": paged_phase(dev)}
         extra_timings(dev, card)
         t1 = time.perf_counter()
-        for name, err in dense_family_phase(dev, card).items():
+        errs, mistral = dense_family_phase(dev, card)
+        for name, err in errs.items():
             perf[name]["max_abs_err"] = max(perf[name]["max_abs_err"], err)
         elapsed = {"3": t1 - t0, "3 dense shapes": time.perf_counter() - t1}
         print(f"[phase 3 done: {elapsed['3']:.1f} + {elapsed['3 dense shapes']:.1f} s]")
 
         # 4. the first slice's path at full width
         t0 = time.perf_counter()
-        counts, gpu = slice_phase(dev, card, kernels)
+        with plain_weights_once():
+            counts, gpu = slice_phase(dev, card, kernels)
         elapsed["4"] = time.perf_counter() - t0
         print(f"[phase 4 done: {elapsed['4']:.1f} s]")
 
@@ -1894,15 +2391,17 @@ def main() -> int:
         t0 = time.perf_counter()
         by_path = {"phase 4 greedy block engine": counts}
         cfg10, params10, _ = layer_cut(gpu.cfg, gpu.params, PATHS_LAYERS)
-        by_path.update(paths_phase(dev, card, kernels, cfg10, params10))
+        with plain_weights_once():
+            by_path.update(paths_phase(dev, card, kernels, cfg10, params10))
         del params10
         elapsed["5"] = time.perf_counter() - t0
         print(f"[phase 5 done: {elapsed['5']:.1f} s]")
 
         # 6. observability and the launcher at full width
         t0 = time.perf_counter()
-        by_path.update(observability_phase(dev, card, kernels, gpu.cfg,
-                                           gpu.params))
+        with plain_weights_once():
+            by_path.update(observability_phase(dev, card, kernels, gpu.cfg,
+                                               gpu.params))
         elapsed["6"] = time.perf_counter() - t0
         print(f"[phase 6 done: {elapsed['6']:.1f} s]")
 
@@ -1911,25 +2410,56 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        moe_paths, experts = moe_phase(dev, card, kernels)
+        with plain_weights_once():
+            moe_paths, experts = moe_phase(dev, card, kernels)
         by_path.update(moe_paths)
         elapsed["7"] = time.perf_counter() - t0
         print(f"[phase 7 done: {elapsed['7']:.1f} s]")
 
-        # 8. the recurrent families at full width and depth, one at a time
+        # 8. the recurrent families at full width, one at a time
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        griffin_paths, recurrent = griffin_phase(dev, card, kernels)
+        with plain_weights_once():
+            griffin_paths, recurrent = griffin_phase(dev, card, kernels)
         by_path.update(griffin_paths)
         gc.collect()
         torch.cuda.empty_cache()
-        by_path.update(mamba_phase(dev, card, kernels))
+        with plain_weights_once():
+            by_path.update(mamba_phase(dev, card, kernels))
         perf["swis_matmul"]["max_abs_err"] = max(
             [perf["swis_matmul"]["max_abs_err"]]
             + [p["max_abs_err"] for p in recurrent.values()])
         elapsed["8"] = time.perf_counter() - t0
         print(f"[phase 8 done: {elapsed['8']:.1f} s]")
+
+        # 9. the VLM and encoder families at full width and depth, one at a
+        # time; the kernels at their shapes first
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        new_shapes = vlm_kernel_phase(dev, card)
+        secs9 = {"9 (b)": time.perf_counter() - t0}
+        with plain_weights_once():
+            vlm_paths, secs = vlm_phase(dev, card, kernels)
+        by_path.update(vlm_paths)
+        secs9.update(secs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with plain_weights_once():
+            enc_paths, secs9["9 (a, e) encoder"] = encoder_phase(
+                dev, card, kernels)
+        by_path.update(enc_paths)
+        new_shapes["mistral-large-123b wq and MLP wo M=4"] = mistral
+        paged_vlm = new_shapes.pop("paged")
+        perf["swis_matmul"]["max_abs_err"] = max(
+            [perf["swis_matmul"]["max_abs_err"]]
+            + [p["max_abs_err"] for p in new_shapes.values()])
+        perf["paged_attention"]["max_abs_err"] = max(
+            perf["paged_attention"]["max_abs_err"], paged_vlm["max_abs_err"])
+        elapsed["9"] = time.perf_counter() - t0
+        print(f"[phase 9 done: {elapsed['9']:.1f} s: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in secs9.items()) + "]")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1965,6 +2495,18 @@ def main() -> int:
         label: {k: p[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "max_abs_err")}
         for label, p in recurrent.items()}
+    # the VLM's, the encoder's and mistral-large-123b's shapes (phases 3
+    # and 9 (b)), by CUDA events behind a spin kernel
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
+    rows[0]["vlm_encoder_shapes"] = {
+        label: {k: p[k] for k in keys} for label, p in new_shapes.items()}
+    rows[1]["vlm_decode"] = {
+        **{k: paged_vlm[k] for k in keys},
+        "timed": (f"one {VLM_ARCH} decode launch (B 4, 32 heads over 8 of "
+                  f"Dh 128, 16 logical blocks, fp32 cache) by CUDA events "
+                  f"behind a spin kernel; library: SDPA over the gathered "
+                  f"K/V")}
     rows[1]["qwen2_moe_decode"] = {
         **{k: experts["paged_decode"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config('<arch-id>')`` returns the
 exact published config, ``get_smoke('<arch-id>')`` the reduced same-family
-smoke config. Only the architectures the port serves so far are listed:
-the dense family, the MoE family, and the recurrent families Griffin
-(recurrentgemma-2b) and Mamba2 (mamba2-2.7b)."""
+smoke config. Every architecture of the reference is listed, in its
+order: the dense family, the MoE family, the recurrent families Griffin
+(recurrentgemma-2b) and Mamba2 (mamba2-2.7b), the VLM
+(llama-3.2-vision-11b) and the encoder (hubert-xlarge)."""
 from __future__ import annotations
 
 import importlib
@@ -13,13 +14,16 @@ from repro_torch.configs.base import (ArchConfig, GriffinConfig,
 from repro_torch.core.swis import QuantConfig
 
 _MODULES = {
-    "phi3-mini-3.8b": "phi3_mini_3_8b",
-    "smollm-135m": "smollm_135m",
-    "deepseek-7b": "deepseek_7b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "dbrx-132b": "dbrx_132b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
+    "mistral-large-123b": "mistral_large_123b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "smollm-135m": "smollm_135m",
+    "deepseek-7b": "deepseek_7b",
     "mamba2-2.7b": "mamba2_2_7b",
+    "hubert-xlarge": "hubert_xlarge",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -22,6 +22,11 @@ in float32 for the card (qwen2-moe-a2.7b: ~60 GB) is served packed
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --packed
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
       --smoke --device cpu --packed
+
+``--arch`` takes every arch of the registry. The VLM
+(llama-3.2-vision-11b) serves text-only requests, as the reference
+launcher does; the encoder (hubert-xlarge) has no decoder, and the run
+raises the engines' ``ValueError`` before any weight is drawn.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from repro_torch.models import params as pp
 from repro_torch.models.model import Model
 from repro_torch.serve import (ContinuousBatchingEngine, DecodeEngine,
                                EngineConfig, SamplingParams)
+from repro_torch.serve.engine import require_decoder
 from repro_torch.serve.metrics import format_report
 from repro_torch.serve.quantized import init_packed_params
 
@@ -126,6 +132,7 @@ def run(args: argparse.Namespace,
     dev = _device.resolve(args.device)
     cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
     cfg = cfg.replace(compute_dtype="float32")
+    require_decoder(cfg)
     qcfg = QuantConfig(method="swis", n_shifts=args.n_shifts,
                        group_size=args.group_size)
     pack_stats = None

@@ -1,4 +1,4 @@
-"""Attention for the dense family (PyTorch port of ``repro.models.attention``).
+"""Attention (PyTorch port of ``repro.models.attention``).
 
 Ported: GQA self-attention with RoPE, the KV-chunked online-softmax
 prefill (:func:`chunked_attention`), the single-einsum decode
@@ -7,8 +7,9 @@ whole-prompt and suffix prefill writes into a per-slot working tree, and
 block-table decode and the fused ``q_lens`` mixed step over the
 physical-block arena, either through the paged attention kernel or through
 the materialized gather, and the contiguous ring modes (per-slot decode,
-lockstep decode, ring-tail prefill). Cross-attention waits for a later
-slice and raises.
+lockstep decode, ring-tail prefill); and cross-attention over a context
+(the VLM's patch embeddings), whose K/V come from the context, with no
+RoPE and no cache.
 
 Caches are updated in place where the reference returned updated copies
 (and donated the arena): the returned cache is the same dict, mutated.
@@ -26,13 +27,14 @@ from repro_torch.models.params import P
 
 
 def build_attention(cfg: ArchConfig, kind: str = "self") -> dict:
-    if kind != "self":
-        raise NotImplementedError(f"{kind!r} attention is not ported yet")
+    """``kind="cross"``: K/V project the VLM's ``vision_dim``-wide
+    context."""
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kv_in = cfg.vlm.vision_dim if (kind == "cross" and cfg.vlm) else d
     return {
         "wq": build_linear(d, h * dh, ("embed", "q_proj")),
-        "wk": build_linear(d, hkv * dh, ("embed", "kv_proj")),
-        "wv": build_linear(d, hkv * dh, ("embed", "kv_proj")),
+        "wk": build_linear(kv_in, hkv * dh, ("embed", "kv_proj")),
+        "wv": build_linear(kv_in, hkv * dh, ("embed", "kv_proj")),
         "wo": build_linear(h * dh, d, ("q_proj", "embed")),
     }
 
@@ -133,6 +135,7 @@ def _last_writes(phys: torch.Tensor, off: torch.Tensor, arena) -> torch.Tensor:
 def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                     positions: torch.Tensor, causal: bool = True,
                     window: Optional[int] = None,
+                    ctx: Optional[torch.Tensor] = None,
                     cache: Optional[dict] = None,
                     cache_index=None,
                     block_tables: Optional[torch.Tensor] = None,
@@ -162,18 +165,31 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
     ``paged`` runs the paged attention kernel over the arena instead of
     materializing the gathered K/V.
+
+    ``ctx`` (B, P, Dv) makes it cross-attention: K/V project the context,
+    with no RoPE, at positions [0, P), attended without a causal mask or a
+    cache.
     """
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, s, _ = x.shape
     q = dense(p["wq"], x, cfg).reshape(b, s, h, dh)
-    k = dense(p["wk"], x, cfg).reshape(b, s, hkv, dh)
-    v = dense(p["wv"], x, cfg).reshape(b, s, hkv, dh)
-    q = rope(q, _pos2(positions), cfg.rope_theta)
-    k = rope(k, _pos2(positions), cfg.rope_theta)
+    kv_src = ctx if ctx is not None else x
+    k = dense(p["wk"], kv_src, cfg).reshape(b, kv_src.shape[1], hkv, dh)
+    v = dense(p["wv"], kv_src, cfg).reshape(b, kv_src.shape[1], hkv, dh)
 
     def project(out):
         return dense(p["wo"], out.reshape(b, s, h * dh), cfg)
 
+    if ctx is not None:
+        kv_pos = torch.arange(ctx.shape[1], dtype=torch.int32,
+                              device=x.device)
+        out = chunked_attention(q, k, v, q_pos=positions, kv_pos=kv_pos,
+                                causal=False, window=None,
+                                chunk=cfg.attn_chunk)
+        return project(out), None
+
+    q = rope(q, _pos2(positions), cfg.rope_theta)
+    k = rope(k, _pos2(positions), cfg.rope_theta)
     if cache is None:
         out = chunked_attention(q, k, v, q_pos=positions, kv_pos=positions,
                                 causal=causal, window=window,

@@ -1,7 +1,9 @@
-"""Top-level model for the dense, MoE, Griffin and Mamba2 families (PyTorch
-port of ``repro.models.model``): embedding -> layer stack -> norm ->
-unembed, with the serving entry points ``prefill``, ``prefill_bucketed``,
-``prefill_chunk``, ``decode_step``, ``mixed_step`` and ``verify_step``.
+"""Top-level model of every family (PyTorch port of
+``repro.models.model``): embedding (or the encoder's frame projection) ->
+layer stack -> norm -> unembed, with the serving entry points ``prefill``,
+``prefill_bucketed``, ``prefill_chunk``, ``decode_step``, ``mixed_step``
+and ``verify_step``, which pass the batch dict through: a VLM batch that
+carries ``patches`` runs cross-attention, one without skips it.
 
 The depth is ``n_units`` repetitions of the family's pattern unit, stacked
 under ``"blocks"``, plus the unrolled ``tail`` layers that remain (Griffin's
@@ -24,6 +26,7 @@ from repro_torch.models import params as pp
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (build_embed, build_norm, embed_apply,
                                        norm_apply, unembed_apply)
+from repro_torch.models.params import P
 
 
 def _layer(tree, i: int):
@@ -50,6 +53,10 @@ class Model:
         if self.tail:
             tree["tail"] = {f"tail{i}_{kind}": tfm.build_block(cfg, kind)
                             for i, kind in enumerate(self.tail)}
+        if cfg.family == "encoder":
+            # modality frontend stub: projects precomputed frame embeddings
+            tree["frontend"] = {
+                "w": P((cfg.d_model, cfg.d_model), ("embed", "embed2"))}
         return tree
 
     def build_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -75,10 +82,12 @@ class Model:
               cache_index=None, last_only: bool = False, last_index=None,
               block_tables=None, attend_cache: bool = False,
               paged: bool = False, q_lens=None):
-        """Forward pass over tokens (B, S). Returns (logits (B, S, V) — or
-        (B, 1, V) with ``last_index`` (scalar or (B,)) or ``last_only`` —
-        cache, aux) — ``aux`` the sum of the layers' ``moe_aux`` (0 for the
-        dense family).
+        """Forward pass over ``batch["tokens"]`` (B, S), or the encoder's
+        ``batch["frames"]`` (B, S, D), with the VLM's optional
+        ``batch["patches"]`` (B, P, Dv) as the cross-attention context.
+        Returns (logits (B, S, V) — or (B, 1, V) with ``last_index``
+        (scalar or (B,)) or ``last_only`` — cache, aux) — ``aux`` the sum
+        of the layers' ``moe_aux`` (0 for the dense family).
 
         ``cache_index``: None (no cache), an int (write offset shared by
         the batch) or a (B,) tensor (per-slot start positions). ``q_lens``
@@ -86,7 +95,14 @@ class Model:
         carries ``q_lens[r]`` real tokens.
         """
         cfg = self.cfg
-        x = embed_apply(params["embed"], batch["tokens"], cfg)
+        dt = getattr(torch, cfg.compute_dtype)
+        if cfg.family == "encoder":
+            x = batch["frames"].to(dt) @ params["frontend"]["w"].to(dt)
+        else:
+            x = embed_apply(params["embed"], batch["tokens"], cfg)
+        ctx = batch.get("patches")
+        if ctx is not None:
+            ctx = ctx.to(dt)
         s = x.shape[1]
         ar = torch.arange(s, dtype=torch.int32, device=x.device)
         if cache_index is None:
@@ -110,8 +126,9 @@ class Model:
                    for j, kind in enumerate(self.tail)]
         for lp, lc, key, kind in layers:
             x, _, aux = tfm.block_apply(
-                lp[key], x, cfg, kind, positions=positions,
-                cache=lc[key] if lc is not None else None,
+                lp[key], x, cfg, kind, positions=positions, ctx=ctx,
+                # an empty block cache ("enc") is a stateless block
+                cache=(lc[key] or None) if lc is not None else None,
                 cache_index=cache_index, block_tables=block_tables,
                 attend_cache=attend_cache, paged=paged, q_lens=q_lens)
             if "moe_aux" in aux:

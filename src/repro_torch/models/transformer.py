@@ -1,15 +1,17 @@
 """Block assembly (PyTorch port of ``repro.models.transformer``): every
 family is a repeating pattern unit of blocks, stacked over depth, with any
-remainder layers unrolled as a tail (``models.model``). Ported kinds:
+remainder layers unrolled as a tail (``models.model``). Kinds:
 
-  attn        pre-norm self-attention + MLP               (dense)
-  moe         self-attention + mixture-of-experts FFN     (qwen2-moe / dbrx)
+  attn        pre-norm self-attention + MLP               (dense / vlm self)
+  enc         bidirectional self-attention + MLP          (hubert)
   attn_local  sliding-window self-attention + MLP         (griffin)
+  moe         self-attention + mixture-of-experts FFN     (qwen2-moe / dbrx)
   rec         RG-LRU temporal mix + MLP                   (griffin)
   mamba       Mamba-2 SSD mixer (no MLP)                  (mamba2)
+  self_cross  self-attn + gated cross-attn + MLP          (llama-3.2-vision)
 
-so the dense, MoE, Griffin and Mamba2 families are served. The encoder
-(``enc``) and cross-attention (``self_cross``) kinds are not ported yet."""
+so every family of the reference is served (the encoder only through
+``Model.apply``: it has no decoder)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -24,8 +26,6 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import build_mlp, build_norm, mlp_apply, norm_apply
 from repro_torch.models.params import P
 
-_KINDS = ("attn", "moe", "attn_local", "rec", "mamba")
-
 
 def pattern_for(cfg: ArchConfig) -> Tuple[str, ...]:
     if cfg.family == "dense":
@@ -36,22 +36,29 @@ def pattern_for(cfg: ArchConfig) -> Tuple[str, ...]:
         return cfg.griffin.pattern
     if cfg.family == "mamba2":
         return ("mamba",)
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-
-
-def _ported(kind: str) -> None:
-    if kind not in _KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if cfg.family == "encoder":
+        return ("enc",)
+    if cfg.family == "vlm":
+        return ("attn",) * (cfg.vlm.cross_every - 1) + ("self_cross",)
+    raise ValueError(cfg.family)
 
 
 def build_block(cfg: ArchConfig, kind: str) -> dict:
-    _ported(kind)
     d = cfg.d_model
     if kind == "mamba":
         return {"ln": build_norm(d), "mixer": ssm_mod.build_mamba(cfg)}
     if kind == "rec":
         return {"ln1": build_norm(d), "rec": rglru_mod.build_rglru_block(cfg),
                 "ln2": build_norm(d), "mlp": build_mlp(cfg)}
+    if kind == "self_cross":
+        # the reference's key order: init_params draws leaves in it
+        return {"ln1": build_norm(d), "attn": attn_mod.build_attention(cfg),
+                "lnx": build_norm(d),
+                "xattn": attn_mod.build_attention(cfg, kind="cross"),
+                "xgate": P((), (), init="zeros"),
+                "ln2": build_norm(d), "mlp": build_mlp(cfg)}
+    if kind not in ("attn", "enc", "attn_local", "moe"):
+        raise ValueError(kind)
     ffn = ({"moe": moe_mod.build_moe(cfg)} if kind == "moe"
            else {"mlp": build_mlp(cfg)})
     return {"ln1": build_norm(d), "attn": attn_mod.build_attention(cfg),
@@ -61,15 +68,19 @@ def build_block(cfg: ArchConfig, kind: str) -> dict:
 def build_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                       dtype, per_slot: bool = False) -> dict:
     """The attention kinds keep K/V and a position plane (``attn_local``
-    a ring of ``min(max_len, window)`` positions); ``rec`` and ``mamba``
-    keep their recurrent state, with no position plane."""
-    _ported(kind)
+    a ring of ``min(max_len, window)`` positions; ``self_cross`` for its
+    self-attention only); ``rec`` and ``mamba`` keep their recurrent
+    state, with no position plane; ``enc`` keeps nothing (``{}``)."""
     if kind == "rec":
         return rglru_mod.build_rglru_cache(cfg, batch, dtype)
     if kind == "mamba":
         return ssm_mod.build_mamba_cache(cfg, batch, dtype)
+    if kind == "enc":
+        return {}
     if kind == "attn_local":
         max_len = min(max_len, cfg.griffin.window)
+    elif kind not in ("attn", "moe", "self_cross"):
+        raise ValueError(kind)
     c = attn_mod.build_cache(cfg, batch, max_len, dtype)
     cache_len = c["k"].shape[1]
     # position slots start invalid (-1) so unwritten entries are masked
@@ -83,13 +94,19 @@ def build_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
 
 
 def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
-                positions: torch.Tensor, cache: Optional[dict] = None,
+                positions: torch.Tensor, ctx: Optional[torch.Tensor] = None,
+                cache: Optional[dict] = None,
                 cache_index=None, block_tables: Optional[torch.Tensor] = None,
                 attend_cache: bool = False, paged: bool = False,
                 q_lens: Optional[torch.Tensor] = None):
     """Returns (x, cache, aux): ``aux`` holds ``moe_aux`` for a moe block,
-    and is empty otherwise. A cached block updates ``cache`` in place."""
-    _ported(kind)
+    and is empty otherwise. A cached block updates ``cache`` in place.
+
+    ``enc`` attends both ways whatever ``cfg.causal`` says. A
+    ``self_cross`` block adds the gated cross residual ``tanh(xgate) *
+    xattn(lnx(x), ctx)`` only when ``ctx`` (the patch embeddings) is
+    given: launches without it skip cross-attention, as the reference's
+    decode, mixed, draft and verify launches do."""
     if kind == "mamba":
         h, cache = ssm_mod.mamba_apply(p["mixer"], norm_apply(p["ln"], x, cfg),
                                        cfg, cache)
@@ -103,10 +120,15 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
     window = cfg.griffin.window if kind == "attn_local" else None
     h, cache = attn_mod.attention_apply(
         p["attn"], norm_apply(p["ln1"], x, cfg), cfg, positions=positions,
-        causal=cfg.causal, window=window, cache=cache,
+        causal=cfg.causal and kind != "enc", window=window, cache=cache,
         cache_index=cache_index, block_tables=block_tables,
         attend_cache=attend_cache, paged=paged, q_lens=q_lens)
     x = x + h
+    if kind == "self_cross" and ctx is not None:
+        hx, _ = attn_mod.attention_apply(
+            p["xattn"], norm_apply(p["lnx"], x, cfg), cfg,
+            positions=positions, causal=False, ctx=ctx)
+        x = x + torch.tanh(p["xgate"]).to(x.dtype) * hx
     aux = {}
     if kind == "moe":
         h, aux = moe_mod.moe_apply(p["moe"], norm_apply(p["ln2"], x, cfg), cfg)

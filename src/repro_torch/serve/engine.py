@@ -83,6 +83,25 @@ def _sample(logits, keys: List[torch.Tensor], steps, temps) -> np.ndarray:
                        temps).cpu().numpy()
 
 
+def require_decoder(cfg: ArchConfig) -> None:
+    """The engines serve decoders only: an encoder-only config
+    (``has_decoder`` False, hubert-xlarge) raises ``ValueError``. The
+    reference's engines cannot serve one either (its prefill has no
+    ``frames``); an encoder runs through ``Model.apply``."""
+    if not cfg.has_decoder:
+        raise ValueError(f"{cfg.name} is encoder-only (has_decoder=False): "
+                         f"the serve engines need a decoder; run it through "
+                         f"Model.apply")
+
+
+def _extra_sig(extra):
+    """Prefill grouping key of a request's extra inputs: their names and
+    shapes (None without any), so that requests with and without, e.g., VLM
+    patches never share a batch."""
+    return (tuple(sorted((k, tuple(np.shape(v))) for k, v in extra.items()))
+            if extra else None)
+
+
 def _maybe_pack(cfg: ArchConfig, params, packed: bool,
                 quant_cfg: Optional[QuantConfig]):
     """Common packing path: returns (cfg, params, pack_stats)."""
@@ -126,6 +145,14 @@ class ContinuousBatchingEngine:
     gathered K/V), ``"xla"`` (the plain version on the CPU, which walks
     the blocks as the reference's XLA scan), or None (the gather path).
 
+    Requests may carry extra inputs (``submit(..., extra={"patches":
+    ...})``, the VLM's patch embeddings): only their prefill launches read
+    them (decode, mixed, draft and verify launches feed tokens alone, as
+    in the reference); they never match or commit prefix-cache blocks and
+    score 0 for admission; prefill groups them by their extra inputs'
+    shapes; and their chunk groups take the separate path, never the
+    fused step. An encoder-only config raises ``ValueError``.
+
     Counters of the model calls made, so a caller can check how many
     kernel launches a run should have made: ``n_prefill_calls`` (whole or
     suffix prefill), ``n_chunk_calls`` (separate chunk prefill),
@@ -140,6 +167,7 @@ class ContinuousBatchingEngine:
         if not isinstance(config, EngineConfig):
             raise TypeError(f"config must be an EngineConfig, got "
                             f"{type(config).__name__}")
+        require_decoder(cfg)
         self.config = config
         # enable_metrics=False swaps in no-op instruments: the hot path
         # pays one attribute check per phase
@@ -214,11 +242,13 @@ class ContinuousBatchingEngine:
 
     # -- request API ----------------------------------------------------
 
-    def submit(self, prompt, params: SamplingParams) -> int:
+    def submit(self, prompt, params: SamplingParams, extra=None) -> int:
         """Enqueue a request; returns its id. ``params.seed`` (or an
         explicit ``params.key``, two uint32 words) makes its sampling
         reproducible; otherwise it gets the distinct key
-        ``fold_in(key(0), rid)``."""
+        ``fold_in(key(0), rid)``. ``extra`` ({name: array}, e.g. the VLM's
+        ``patches`` (P, Dv)) joins the batch of the request's prefill
+        launches, stacked over the group's rows."""
         if not isinstance(params, SamplingParams):
             raise TypeError(f"submit() expects SamplingParams, got "
                             f"{type(params).__name__}")
@@ -234,7 +264,7 @@ class ContinuousBatchingEngine:
         else:
             key = prng.fold_in(self._dummy_key, self.scheduler.next_rid())
         rid = self.scheduler.submit(prompt, params.max_tokens,
-                                    params.temperature, key)
+                                    params.temperature, key, extra)
         self.tracer.event(tr.SUBMIT, rid, prompt_len=int(prompt.size),
                           n_tokens=int(params.max_tokens))
         return rid
@@ -300,15 +330,19 @@ class ContinuousBatchingEngine:
         return out
 
     def generate(self, prompt: np.ndarray, n_tokens: int,
+                 extra: Optional[Dict[str, Any]] = None,
                  temperature: float = 0.0, seed: int = 0) -> np.ndarray:
         """Static-batch wrapper: prompt (B, S0) -> (B, S0 + n_tokens). Row r
-        samples with key fold_in(key(seed), r), as :class:`DecodeEngine`."""
+        samples with key fold_in(key(seed), r), as :class:`DecodeEngine`,
+        and carries row r of each ``extra`` input."""
         if self.scheduler.pending():
             raise RuntimeError("generate() requires an idle engine")
         rng = prng.key(seed)
         rids = [self.submit(row, SamplingParams(
                     max_tokens=n_tokens, temperature=temperature,
-                    key=prng.fold_in(rng, r)))
+                    key=prng.fold_in(rng, r)),
+                    extra={k: v[r] for k, v in extra.items()} if extra
+                    else None)
                 for r, row in enumerate(np.asarray(prompt))]
         out = self.drain()
         return np.stack([out[rid] for rid in rids])
@@ -451,7 +485,10 @@ class ContinuousBatchingEngine:
         return torch.as_tensor(a).to(self.device)
 
     def _hit_score(self, req) -> int:
-        """Cache-aware admission: expected cached-prefix tokens."""
+        """Cache-aware admission: expected cached-prefix tokens (0 for a
+        request with extra inputs, which never shares prefixes)."""
+        if req.extra:
+            return 0
         bs = self.cache.block_size
         return bs * self.prefix_cache.peek_blocks(
             req.prompt, max_blocks=(len(req.prompt) - 1) // bs)
@@ -478,9 +515,10 @@ class ContinuousBatchingEngine:
             s0 = len(req.prompt)
             need = -(-(s0 + req.n_tokens) // bs)
             # at least one suffix token must run through the model: its
-            # logits seed generation
-            matched = self.prefix_cache.match(req.prompt,
-                                              max_blocks=(s0 - 1) // bs)
+            # logits seed generation; K/V computed beside extra inputs
+            # (patches) is never shared
+            matched = ([] if req.extra else self.prefix_cache.match(
+                req.prompt, max_blocks=(s0 - 1) // bs))
             pool.incref(matched)
             own = need - len(matched)
             if pool.n_free() < own:
@@ -493,7 +531,8 @@ class ContinuousBatchingEngine:
                                   blocks_needed=own,
                                   blocks_free=pool.n_free())
                 continue
-            self.prefix_cache.count_lookup(matched)
+            if not req.extra:
+                self.prefix_cache.count_lookup(matched)
             if matched:
                 self.tracer.event(tr.PREFIX_HIT, req.rid, slot=slot,
                                   blocks=len(matched),
@@ -515,18 +554,19 @@ class ContinuousBatchingEngine:
 
     def _release_slot(self, slot: int, st) -> None:
         """Scheduler release hook: commit the request's full token blocks
-        into the trie, drop its block references, and park the slot's
-        table on the trash block."""
+        into the trie (unless it carried extra inputs), drop its block
+        references, and park the slot's table on the trash block."""
         meta = self._slot_meta.pop(slot, None)
         if meta is None:
             return
-        # cache rows hold K/V for prompt + every fed-back token (the final
-        # sampled token never re-enters the model)
-        seq = np.concatenate([st.req.prompt,
-                              np.asarray(st.tokens[:-1], np.int32)])
-        n_commit = min(len(seq) // self.cache.block_size, meta["need"])
-        self.prefix_cache.commit(
-            seq, self.cache.block_tables[slot, :n_commit].tolist())
+        if not st.req.extra:
+            # cache rows hold K/V for prompt + every fed-back token (the
+            # final sampled token never re-enters the model)
+            seq = np.concatenate([st.req.prompt,
+                                  np.asarray(st.tokens[:-1], np.int32)])
+            n_commit = min(len(seq) // self.cache.block_size, meta["need"])
+            self.prefix_cache.commit(
+                seq, self.cache.block_tables[slot, :n_commit].tolist())
         self.prefix_cache.release(meta["matched"] + meta["owned"])
         self.cache.clear_table(slot)
 
@@ -541,17 +581,30 @@ class ContinuousBatchingEngine:
         with self._phase("step.prefill_dispatch_s", "prefill_dispatch"):
             self._run_prefill(admitted)
 
+    def _batch(self, toks: np.ndarray, extras) -> Dict[str, torch.Tensor]:
+        """A prefill launch's batch: the tokens, and each extra input
+        stacked over the group's rows (``extras``: one dict or None a
+        row, all of one signature)."""
+        batch = {"tokens": self._dev(toks).long()}
+        if extras[0]:
+            for k in extras[0]:
+                batch[k] = torch.stack([torch.as_tensor(ex[k])
+                                        for ex in extras]).to(self.device)
+        return batch
+
     def _run_prefill(self, admitted) -> None:
-        # one batched prefill per (prefix length, bucketed suffix length)
+        # one batched prefill per (prefix length, bucketed suffix length,
+        # extra-input signature)
         groups: Dict[Any, list] = {}
         bs = self.cache.block_size
         for slot, st in admitted:
             p_len = (self._slot_meta[slot]["prefix_blocks"] * bs
                      if self.block_mode else 0)
             s_real = len(st.req.prompt) - p_len
-            groups.setdefault((p_len, self._bucket(s_real, p_len)),
+            groups.setdefault((p_len, self._bucket(s_real, p_len),
+                               _extra_sig(st.req.extra)),
                               []).append((slot, st))
-        for (p_len, s_pad), group in groups.items():
+        for (p_len, s_pad, _), group in groups.items():
             g = len(group)
             toks = np.zeros((g, s_pad), np.int32)
             lasts = np.empty(g, np.int64)
@@ -559,7 +612,7 @@ class ContinuousBatchingEngine:
                 sfx = st.req.prompt[p_len:]
                 toks[i, :len(sfx)] = sfx
                 lasts[i] = len(sfx) - 1
-            batch = {"tokens": self._dev(toks).long()}
+            batch = self._batch(toks, [st.req.extra for _, st in group])
             last_idx = self._dev(lasts)
             self._stat_prefill_tokens += int(lasts.sum()) + g
             self.n_prefill_calls += 1
@@ -596,7 +649,9 @@ class ContinuousBatchingEngine:
         """Stage admitted requests as chunk-prefill groups (no model work
         yet: ``_advance_chunk`` or ``_mixed_once`` runs one chunk per
         step). Grouped by (prefix length, chunk count, bucketed final-chunk
-        length), so every row of a group advances in lockstep."""
+        length, extra-input signature), so every row of a group advances
+        in lockstep; every chunk of a group with extra inputs carries
+        them."""
         chunk = self.prefill_chunk
         bs = self.cache.block_size
         groups: Dict[Any, list] = {}
@@ -606,8 +661,10 @@ class ContinuousBatchingEngine:
             n_chunks = -(-s_real // chunk)
             tail = self._bucket(s_real - (n_chunks - 1) * chunk,
                                 p_len + (n_chunks - 1) * chunk)
-            groups.setdefault((p_len, n_chunks, tail), []).append((slot, st))
-        for (p_len, n_chunks, tail), members in groups.items():
+            groups.setdefault((p_len, n_chunks, tail,
+                               _extra_sig(st.req.extra)),
+                              []).append((slot, st))
+        for (p_len, n_chunks, tail, sig), members in groups.items():
             g = len(members)
             s_pad = (n_chunks - 1) * chunk + tail
             toks = np.zeros((g, s_pad), np.int32)
@@ -626,10 +683,13 @@ class ContinuousBatchingEngine:
                 [b for m in metas for b in m["owned"]])
             grp = {"members": members, "metas": metas, "toks": toks,
                    "lasts": lasts, "p_len": p_len, "n_chunks": n_chunks,
-                   "tail": tail, "done": 0, "tree": None}
-            if self.fused_step:
+                   "tail": tail, "done": 0, "tree": None,
+                   "extra": [st.req.extra for _, st in members]}
+            if self.fused_step and sig is None:
                 # each chunk commits straight into the arena through the
-                # group's own tables inside the mixed launch
+                # group's own tables inside the mixed launch (a group with
+                # extra inputs takes the separate path: a mixed batch
+                # carries no per-row side inputs)
                 grp["fused"] = True
                 grp["tables"] = self.cache.group_tables(
                     [m["matched"] + m["owned"] for m in metas])
@@ -668,7 +728,7 @@ class ContinuousBatchingEngine:
         s_chunk = grp["tail"] if final else chunk
         lo = k * chunk
         g = len(grp["members"])
-        batch = {"tokens": self._dev(grp["toks"][:, lo:lo + s_chunk]).long()}
+        batch = self._batch(grp["toks"][:, lo:lo + s_chunk], grp["extra"])
         last_idx = self._dev(grp["lasts"] if final
                              else np.full(g, s_chunk - 1, np.int64))
         committed = grp["p_len"] + lo
@@ -899,6 +959,7 @@ class DecodeEngine:
     device: Any = "cuda"
 
     def __post_init__(self):
+        require_decoder(self.cfg)
         self.device = _device.resolve(self.device)
         params = pp.tree_map(lambda a: a.to(self.device), self.params)
         self.cfg, self.params, self.pack_stats = _maybe_pack(
@@ -911,8 +972,10 @@ class DecodeEngine:
         return pp.init_params(tree, None, device=self.device)
 
     def generate(self, prompt: np.ndarray, n_tokens: int,
+                 extra: Optional[Dict[str, Any]] = None,
                  temperature: float = 0.0, seed: int = 0) -> np.ndarray:
-        """prompt: (B, S0) int32. Returns (B, S0 + n_tokens)."""
+        """prompt: (B, S0) int32. Returns (B, S0 + n_tokens). ``extra``
+        ({name: (B, ...)}) joins the prefill's batch only."""
         prompt = np.asarray(prompt, np.int32)
         b, s0 = prompt.shape
         if b != self.batch or s0 + n_tokens > self.max_len:
@@ -921,6 +984,9 @@ class DecodeEngine:
                              f"{self.max_len}")
         cache = self.new_cache()
         batch = {"tokens": torch.as_tensor(prompt).long().to(self.device)}
+        if extra:
+            batch.update({k: torch.as_tensor(v).to(self.device)
+                          for k, v in extra.items()})
         logits, cache = self.model.prefill(self.params, batch, cache)
         keys = prng.fold_in(prng.key(seed).expand(b, 2), torch.arange(b))
         temps = np.full(b, temperature, np.float32)

@@ -491,3 +491,104 @@ def test_engine_metrics_on_card_match_cpu_path(cuda_device):  # noqa: F811
         moved = {k for k in cpu if "hbm_bytes" in k or "gathered" in k}
         assert {k: v for k, v in card.items() if k not in moved} == \
             {k: v for k, v in cpu.items() if k not in moved}
+
+
+# -- the encoder and VLM families: large M, 32 heads over 8, patches
+
+
+def test_swis_kernel_large_m(cuda_device):  # noqa: F811
+    """The row counts of the encoder and of the VLM's cross-attention K/V:
+    hubert-xlarge's layer GEMMs (K 1280 and 5120) at M = 2000 (4 clips of
+    500 frames) and ``xattn``'s wk/wv (K 4096, N 1024) at M = 4096 (4
+    images of 1024 patches), fp32 x, 4 planes, group 4, against the plain
+    version (rtol 1e-5, atol 1e-5*max|ref|)."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    for m, k, n in ((2000, 1280, 1280), (2000, 1280, 5120),
+                    (2000, 5120, 1280), (4096, 4096, 1024)):
+        w = torch.randn((k, n), generator=g, device=cuda_device) * 0.05
+        pw = packing.pack(swis.quantize(w, swis.QuantConfig(
+            method="swis", n_shifts=4, group_size=4)))
+        x = torch.randn((m, k), generator=g, device=cuda_device)
+        before = sm.KERNEL.launches
+        got = ops.swis_matmul(x, pw)
+        assert sm.KERNEL.launches == before + 1
+        want = ref.swis_matmul_ref(x, pw.sign_plane, pw.mask_planes,
+                                   pw.shifts, pw.scale.reshape(-1).expand(n),
+                                   group=4)
+        _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_paged_kernel_vlm_heads(cuda_device, dtype):  # noqa: F811
+    """llama-3.2-vision-11b's heads: 32 query heads over 8 KV heads (G 4)
+    of Dh 128, B 4 over 16 logical blocks, decode (Sq 1) and Sq 4 with a
+    zero q_lens; every row against the plain version at 1e-5."""
+    rng = np.random.default_rng(18)
+    for sq, q_lens in ((1, None), (4, [4, 0, 2, 1])):
+        q, kv, pos, tables, q_pos = _arena(rng, b=4, sq=sq, nb=16,
+                                           live=(12, 9, 0, 16), hkv=8, g=4,
+                                           dh=128)
+        ql = None if q_lens is None else np.array(q_lens, np.int32)
+        host = [torch.from_numpy(a) for a in (q, kv, pos, tables, q_pos)]
+        dev = [t.to(cuda_device) for t in host]
+        before = pa.KERNEL.launches
+        got = pa.paged_attention_decode(
+            dev[0], dev[1][0].to(dtype), dev[1][1].to(dtype), *dev[2:],
+            q_lens=None if ql is None else torch.from_numpy(ql).to(cuda_device))
+        assert pa.KERNEL.launches == before + 1
+        want = pa.paged_attention_decode(
+            host[0], host[1][0].to(dtype), host[1][1].to(dtype), *host[2:],
+            q_lens=None if ql is None else torch.from_numpy(ql))
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_vlm_and_encoder_on_card_match_cpu_path(cuda_device):  # noqa: F811
+    """The VLM smoke model (xgate 0.5), packed, in block mode with paged
+    attention: image and text requests give the CPU path's tokens, with 14
+    SWIS launches a unit per model call plus 4 per unit for a prefill that
+    carries patches, and one paged launch a layer per arena call; the
+    encoder smoke model's ``apply`` logits equal the CPU's."""
+    cfg = configs.get_smoke("llama-3.2-vision-11b").replace(
+        compute_dtype="float32")
+    model = Model(cfg)
+    params = pp.init_params(model.build(), torch.Generator().manual_seed(5),
+                            device="cpu")
+    params["blocks"]["sub1_self_cross"]["xgate"].fill_(0.5)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (13, 20, 40)]
+    patches = rng.normal(0, 1, (2, cfg.vlm.n_patches,
+                                cfg.vlm.vision_dim)).astype(np.float32)
+    extras = [{"patches": patches[0]}, None, {"patches": patches[1]}]
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        eng = ContinuousBatchingEngine(cfg, params, EngineConfig(
+            max_len=48, n_slots=3, packed=True, use_paged_kernel=True),
+            device=dev)
+        sm.KERNEL.launches = pa.KERNEL.launches = 0
+        rids = [eng.submit(p, SamplingParams(max_tokens=6), extra=ex)
+                for p, ex in zip(prompts, extras)]
+        out = eng.drain()
+        outs.append([out[r] for r in rids])
+        if dev != "cpu":
+            # three buckets (16, 32, 48): three prefill calls, two of
+            # them with patches
+            assert eng.n_prefill_calls == 3
+            image_calls = 2
+            assert sm.KERNEL.launches == (14 * model.n_units
+                                          * eng.model_calls()
+                                          + 4 * model.n_units * image_calls)
+            assert pa.KERNEL.launches == cfg.n_layers * eng.arena_calls()
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+    hcfg = configs.get_smoke("hubert-xlarge").replace(compute_dtype="float32")
+    hmodel = Model(hcfg)
+    hparams = pp.init_params(hmodel.build(), torch.Generator().manual_seed(6),
+                             device="cpu")
+    frames = torch.from_numpy(rng.normal(0, 1, (2, 40, hcfg.d_model)).astype(
+        np.float32))
+    want = hmodel.apply(hparams, {"frames": frames})[0]
+    got = hmodel.apply(pp.tree_map(lambda a: a.to(cuda_device), hparams),
+                       {"frames": frames.to(cuda_device)})[0]
+    _close(got.cpu(), want, 1e-4)

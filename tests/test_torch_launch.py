@@ -42,8 +42,10 @@ def _parse(stdout):
     return json.loads(text[text.index("{"):]), json.loads(sample)
 
 
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_report_and_sample_match_jax_launcher(variant, capsys, monkeypatch):
+def _run_both(argv, arch, capsys, monkeypatch):
+    """The JAX launcher, then the port's on the JAX launcher's weights:
+    (JAX report, JAX sample, port report, port sample, port output, the
+    port's returned report and engine)."""
     pytest.importorskip("jax")  # the card's test environment has no JAX
     import jax
 
@@ -53,13 +55,12 @@ def test_report_and_sample_match_jax_launcher(variant, capsys, monkeypatch):
     from repro.models.model import Model as JModel
     from repro_torch.bridge import from_jax_params
 
-    argv = BASE + VARIANTS[variant]
     monkeypatch.setattr(sys, "argv", ["serve"] + argv)
     jserve.main()
     want, want_sample = _parse(capsys.readouterr().out)
     # the JAX launcher's weights, drawn again in this process (its per-leaf
     # keys depend on the process's string hash, the same here)
-    jcfg = C.get_smoke("smollm-135m").replace(compute_dtype="float32")
+    jcfg = C.get_smoke(arch).replace(compute_dtype="float32")
     jparams = jpp.init_params(JModel(jcfg).build(), jax.random.key(0))
     params = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
 
@@ -67,6 +68,14 @@ def test_report_and_sample_match_jax_launcher(variant, capsys, monkeypatch):
                              params=params)
     out = capsys.readouterr()
     got, got_sample = _parse(out.out)
+    return want, want_sample, got, got_sample, out, report, eng
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_report_and_sample_match_jax_launcher(variant, capsys, monkeypatch):
+    argv = BASE + VARIANTS[variant]
+    want, want_sample, got, got_sample, out, report, eng = _run_both(
+        argv, "smollm-135m", capsys, monkeypatch)
     assert got == report
     assert set(got) == set(want)
     assert got_sample == want_sample
@@ -78,6 +87,21 @@ def test_report_and_sample_match_jax_launcher(variant, capsys, monkeypatch):
     assert {"ttft_p50_s", "tpot_p50_s", "cost_hbm_mib"} <= set(got)
     assert eng.metrics()["engine"]["counters"]["step.model_dispatches"] \
         == eng.model_calls()
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "mistral-large-123b"])
+def test_other_archs_match_jax_launcher(arch, capsys, monkeypatch):
+    """The VLM serves text-only requests (no patches: its cross-attention
+    is skipped, as in the JAX launcher), and mistral-large-123b's smoke
+    config serves as a dense model: reports and samples equal."""
+    argv = ["--arch", arch] + BASE[2:]
+    want, want_sample, got, got_sample, _, _, eng = _run_both(
+        argv, arch, capsys, monkeypatch)
+    assert set(got) == set(want) and got_sample == want_sample
+    for key in EXACT:
+        assert got.get(key) == want.get(key), key
+    assert eng.prefix_stats()["enabled"]
 
 
 @pytest.mark.parametrize("suffix", [".json", ".jsonl"])

@@ -136,10 +136,10 @@ def test_logits_match_reference(variant, packed, keep_slices):
 
 def test_configs_match_reference():
     """The port's config dataclasses keep the reference's fields and
-    defaults (``MoEConfig.e_total`` included), and each ported arch its
-    published widths (smollm-135m, phi3-mini-3.8b, deepseek-7b: the
-    one-card dense family; qwen2-moe-a2.7b and dbrx-132b: the MoE
-    family; recurrentgemma-2b and mamba2-2.7b: the recurrent families)."""
+    defaults (``MoEConfig.e_total`` included), its registry holds every
+    arch of the reference's, and each arch its published widths (the
+    dense family, the MoE family, the recurrent families, the VLM and the
+    encoder)."""
     import dataclasses
 
     import repro.configs.base as jbase
@@ -155,9 +155,7 @@ def test_configs_match_reference():
         for ds in (False, True):
             assert (TQuant(n_shifts=t, double_shift=ds).shift_levels()
                     == JQuant(n_shifts=t, double_shift=ds).shift_levels())
-    assert TC.ARCH_IDS == ("phi3-mini-3.8b", "smollm-135m", "deepseek-7b",
-                           "qwen2-moe-a2.7b", "dbrx-132b",
-                           "recurrentgemma-2b", "mamba2-2.7b")
+    assert TC.ARCH_IDS == C.ARCH_IDS and len(set(TC.ARCH_IDS)) == 10
     for arch in TC.ARCH_IDS:
         for getter in ("get_config", "get_smoke"):
             jc = getattr(C, getter)(arch)
@@ -170,6 +168,52 @@ def test_configs_match_reference():
     for n, padded in ((8, 0), (60, 64), (16, 8)):
         assert (TC.MoEConfig(n_experts=n, n_experts_padded=padded).e_total
                 == C.MoEConfig(n_experts=n, n_experts_padded=padded).e_total)
+
+
+@pytest.mark.parametrize("arch", list(C.ARCH_IDS))
+def test_full_config_param_counts_match_reference(arch):
+    """``count_params`` of each published config's placeholder tree (no
+    weight is drawn) equals the reference's, and so do the leaves' paths
+    and shapes."""
+    tree_t = TModel(TC.get_config(arch)).build()
+    tree_j = JModel(C.get_config(arch)).build()
+    assert tpp.count_params(tree_t) == jpp.count_params(tree_j)
+    shapes_j = {jax.tree_util.keystr(path): leaf.shape for path, leaf in
+                jax.tree_util.tree_flatten_with_path(
+                    tree_j, is_leaf=jpp.is_placeholder)[0]}
+    shapes_t = {}
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(path + f"[{k!r}]", v)
+        else:
+            shapes_t[path] = node.shape
+
+    walk("", tree_t)
+    assert shapes_t == shapes_j
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_mistral_large_logits_match_reference(packed):
+    """mistral-large-123b's smoke config (3 layers, 6 heads over 2 KV heads
+    with ``d_head`` given, as the published config gives 128): ``apply``
+    logits, unpacked and packed."""
+    fields = dict(compute_dtype="float32")
+    jcfg = C.get_smoke("mistral-large-123b").replace(**fields)
+    tcfg = TC.get_smoke("mistral-large-123b").replace(**fields)
+    jparams = jpp.init_params(JModel(jcfg).build(), jax.random.key(8))
+    if packed:
+        jparams, stats = jpack_tree(jparams, JQuant(n_shifts=3))
+        # q/k/v/o and the MLP's three (K 96 and 192); not the unembedding
+        assert stats["n_packed"] == 7
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
+    toks = np.random.default_rng(9).integers(0, jcfg.vocab, (2, 11))
+    want = JModel(jcfg).apply(jparams, {"tokens": jnp.asarray(toks,
+                                                              jnp.int32)})[0]
+    got = TModel(tcfg).apply(tparams, {"tokens": torch.from_numpy(toks)})[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * float(jnp.abs(want).max()))
 
 
 @functools.lru_cache(maxsize=None)

@@ -33,13 +33,17 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(got["modules"]) >= 20, got["modules"]
-    # the observability modules, the launcher, the example, the MoE family
-    # and the recurrent families are walked
+    # the observability modules, the launcher, the example, the MoE
+    # family, the recurrent families, the VLM, the encoder and every config
+    # are walked
     for name in ("serve.metrics", "serve.trace", "serve.costmodel",
                  "perfmodel.pe", "launch.serve", "examples.serve_swis",
                  "models.moe", "configs.qwen2_moe_a2_7b",
                  "configs.dbrx_132b", "models.rglru", "models.ssm",
-                 "configs.recurrentgemma_2b", "configs.mamba2_2_7b"):
+                 "configs.recurrentgemma_2b", "configs.mamba2_2_7b",
+                 "models.attention", "models.transformer", "models.model",
+                 "configs.llama_3_2_vision_11b", "configs.hubert_xlarge",
+                 "configs.mistral_large_123b"):
         assert f"repro_torch.{name}" in got["modules"], name
     assert got["bad"] == [], f"port imported {got['bad']}"
 

@@ -42,12 +42,38 @@ SMOKE_FIELDS = dict(compute_dtype="float32", d_model=64, n_heads=4,
                     n_kv_heads=2, d_ff=128)
 
 
+# the VLM's gate is set to this in both packages' weights: the reference
+# inits xgate to 0, and tanh(0) = 0 keeps the patches from every logit, so
+# a parity test at the initial weights would pass with cross-attention
+# wrong
+XGATE = 0.5
+
+
+def with_xgate(tree, value: float):
+    """A copy of a parameter tree (the JAX package's or the port's) whose
+    every ``xgate`` leaf (one a ``self_cross`` layer) holds ``value``."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k != "xgate":
+            out[k] = with_xgate(v, value)
+        elif isinstance(v, torch.Tensor):
+            out[k] = torch.full_like(v, value)
+        else:
+            import jax.numpy as jnp
+
+            out[k] = jnp.full_like(v, value)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def bridged_smoke(seed: int = 5, arch: str = "smollm-135m"):
     """(jcfg, tcfg, jparams, tparams): the smoke-size config of ``arch`` in
     both packages (smollm-135m's widened by ``SMOKE_FIELDS``; the others
     as published, in float32) and the JAX package's random params, bridged
-    into the port in this process."""
+    into the port in this process. A VLM's ``xgate`` is ``XGATE`` in
+    both."""
     import jax
 
     import repro.configs as C
@@ -61,6 +87,8 @@ def bridged_smoke(seed: int = 5, arch: str = "smollm-135m"):
     jcfg = C.get_smoke(arch).replace(**fields)
     tcfg = TC.get_smoke(arch).replace(**fields)
     jparams = jpp.init_params(JModel(jcfg).build(), jax.random.key(seed))
+    if jcfg.family == "vlm":
+        jparams = with_xgate(jparams, XGATE)
     tparams = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, tcfg, jparams, tparams
 
@@ -87,14 +115,16 @@ def _jax_engine(arch, items):
                                     config=EngineConfig(**kw))
 
 
-def run_waves(engine, sampling, waves):
+def run_waves(engine, sampling, waves, extras=None):
     """Submit each wave ``(prompts, n_tokens, gap)``, then step ``gap``
     times; drain at the end. ``sampling(n_tokens, i)`` gives the i-th
-    request's SamplingParams. Returns the tokens of each request, in
-    submission order."""
+    request's SamplingParams, ``extras[i]`` (if given) its extra inputs.
+    Returns the tokens of each request, in submission order."""
     out, rids = {}, []
     for prompts, n_tok, gap in waves:
-        rids += [engine.submit(p, sampling(n_tok, len(rids) + i))
+        rids += [engine.submit(p, sampling(n_tok, len(rids) + i),
+                               extra=extras[len(rids) + i] if extras
+                               else None)
                  for i, p in enumerate(prompts)]
         for _ in range(gap):
             out.update({f.rid: f.tokens for f in engine.step()})
