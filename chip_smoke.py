@@ -119,11 +119,32 @@ Phases, each fatal on failure (exit code 1, and no result line):
    of max|logit|. Phase 3 also holds and times SWIS at mistral-large-123b's
    wq (12288 x 12288) and MLP wo (28672 x 12288), each packed alone.
 
-The CPU checks of phases 4-9 run inside ``plain_weights_once``: the plain
+10. SWIS QAT training at full width and depth, once phase 9's tensors are
+   freed: smollm-135m (random seeded init, n_shifts 4, group 4, seq 256,
+   batch 16, lr 3e-3, warmup 20, bf16 compute) (a) trains 8 steps through
+   ``repro_torch.launch.train`` in process, checkpointing every 4 under
+   ``build/``: each step's finite loss, wall ms, device ms of its parts
+   (QAT selection, forward + backward, optimizer; CUDA events), tokens/s
+   and peak memory, then a profiled step (device busy, and the kernels the
+   selection launches); (b) a fresh trainer resumes from the step-4
+   checkpoint and repeats steps 5-8's losses and the step-8 params bit
+   for bit; (c) at a 2-layer cut of the same initial params, one QAT step
+   (float32 compute) on the card and on the CPU plain path: fake-quantized
+   weights bit-identical, loss, gradients and updated params within
+   ``QAT_TOL``; (d) the serve launcher serves the step-8 checkpoint with
+   ``--ckpt --packed`` (8 requests, 210 SWIS launches a model dispatch,
+   the gather path), an engine with the paged kernel serves phase 4's
+   traffic on the same packed weights (210 SWIS a model call, 30 paged an
+   arena call), and at a 4-layer cut greedy tokens equal the CPU plain
+   path's; (e) one QAT step of each family's smoke config (dense, MoE,
+   Griffin, Mamba2, the VLM with patches, the encoder with frames) on the
+   card against the CPU, with (c)'s checks.
+
+The CPU checks of phases 4-10 run inside ``plain_weights_once``: the plain
 SWIS version expands each CPU weight once, not once a model call.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (each
-kernel's launches summed over the paths of phases 4 to 9, and by path; the
+kernel's launches summed over the paths of phases 4 to 10, and by path; the
 SWIS row also carries the expert-axis launch's own numbers, phase 8's
 layers and phase 9's shapes, the paged row the qwen2-moe and VLM decode
 launches); the last is
@@ -2329,6 +2350,332 @@ def encoder_phase(dev, card, kernels):
     return {"9 (e) encoder apply": counts}, time.perf_counter() - t0
 
 
+# -- phase 10: SWIS QAT training at full width ------------------------------------
+
+QAT_ARGV = ["--arch", "smollm-135m", "--quant", "swis", "--n-shifts", "4",
+            "--group-size", "4", "--seq", "256", "--batch", "16", "--lr",
+            "3e-3", "--warmup", "20", "--steps", "8", "--ckpt-every", "4"]
+QAT_CUT = 2  # (c)'s depth: the card against the CPU plain path
+# (e)'s families: (arch, what its batch carries)
+QAT_FAMILIES = [("smollm-135m", "tokens"), ("qwen2-moe-a2.7b", "tokens"),
+                ("recurrentgemma-2b", "tokens"), ("mamba2-2.7b", "tokens"),
+                ("llama-3.2-vision-11b", "tokens and patches"),
+                ("hubert-xlarge", "frames")]
+# tolerances of the card against the CPU plain path (float32 compute): the
+# loss within rtol 1e-5; each gradient leaf within 1e-4 x its max |g|; the
+# updated weights: AdamW's first step moves a weight by lr x g / (|g| +
+# 1e-8) (plus decay), so where a gradient is within its rounding of 0 the
+# move can differ by up to 2 x lr; at most 1e-4 of the weights may differ
+# by more than 0.01 x lr, and none by more than 2.05 x lr
+QAT_TOL = {"loss": 1e-5, "grad": 1e-4, "param": 2.05, "param_frac": 1e-4}
+
+
+def qat_step_both(label, cfg, params_cpu, batch_cpu, dev, lr=3e-3):
+    """One QAT train step (grads, then the AdamW update) on the card and on
+    the CPU plain path from the same float32 params and batch: the
+    fake-quantized weights must be bit-identical, the loss, gradients and
+    updated params within ``QAT_TOL``. Returns a summary line."""
+    import torch
+    from repro_torch.core.qat import quantize_tree
+    from repro_torch.models import params as pp
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.steps import (init_state, make_grad_fn,
+                                         make_train_step)
+
+    model = Model(cfg)
+    lr_fn = warmup_cosine(lr, 1, 10)  # the full lr at step 0
+    out = []
+    for d in (dev, torch.device("cpu")):
+        params = pp.tree_map(lambda a: a.to(d), params_cpu)
+        batch = {k: v.to(d) for k, v in batch_cpu.items()}
+        with torch.no_grad():
+            q = quantize_tree(params, cfg.quant.cfg)
+        grads, metrics = make_grad_fn(model)(params, batch)
+        state, _ = make_train_step(model, AdamW(), lr_fn)(
+            init_state(params), batch)
+        out.append([pp.tree_map(lambda a: None if a is None else a.cpu(), t)
+                    for t in (q, grads, state.params)]
+                   + [float(metrics["loss"])])
+    (qc, gc_, pc, lc), (qh, gh, ph, lh) = out
+    n_q = [0]
+
+    def same_q(a, b):
+        n_q[0] += 1
+        check(torch.equal(a, b), f"{label}: a fake-quantized leaf differs "
+              f"on the card (max |diff| {(a - b).abs().max().item():.3g})")
+    _zip(same_q, qc, qh)
+    check(abs(lc - lh) <= QAT_TOL["loss"] * abs(lh),
+          f"{label}: loss {lc} on the card against {lh} on the CPU")
+    gerr = [0.0]
+
+    def close_g(a, b):
+        if a is None or b is None:
+            check(a is None and b is None, f"{label}: a gradient is None on "
+                  f"one side only")
+            return
+        scale = max(b.abs().max().item(), 1e-30)
+        e = (a - b).abs().max().item() / scale
+        gerr[0] = max(gerr[0], e)
+        check(e <= QAT_TOL["grad"], f"{label}: gradient leaf differs by "
+              f"{e:.3g} x its max |g|")
+    _zip(close_g, gc_, gh)
+    perr, far, total = [0.0], [0], [0]
+
+    def close_p(a, b):
+        d = (a - b).abs() / lr
+        perr[0] = max(perr[0], d.max().item())
+        far[0] += int((d > 0.01).sum())
+        total[0] += d.numel()
+    _zip(close_p, pc, ph)
+    check(perr[0] <= QAT_TOL["param"] and far[0] <= QAT_TOL["param_frac"]
+          * total[0], f"{label}: updated params differ by up to "
+          f"{perr[0]:.3g} x lr, {far[0]} of {total[0]} beyond 0.01 x lr")
+    return (f"{label}: {n_q[0]} leaves fake-quantized bit-identically; loss "
+            f"{lc:.6f} (CPU {lh:.6f}); gradients within {gerr[0]:.3g} x max"
+            f"|g|; updated params within {perr[0]:.3g} x lr ({far[0]} of "
+            f"{total[0]} beyond 0.01 x lr)")
+
+
+def _zip(fn, a, b):
+    if isinstance(a, dict):
+        for k in a:
+            _zip(fn, a[k], b[k])
+    else:
+        fn(a, b)
+
+
+def qat_phase(dev, card, kernels):
+    """SWIS QAT at smollm-135m's full width and depth (random seeded init,
+    n_shifts 4, group 4, seq 256, batch 16, lr 3e-3, warmup 20, bf16
+    compute): (a) ``repro_torch.launch.train`` in process for 8 steps,
+    checkpointing every 4 under ``build/``, with each step's loss, wall ms,
+    device ms by part, tokens/s and peak memory, then one step under the
+    profiler (device busy, and the kernels the QAT selection launches);
+    (b) a fresh trainer resumes from the step-4 checkpoint and repeats
+    steps 5-8 bit for bit; (c) at a 2-layer cut of the same initial
+    params, one QAT step (float32 compute) on the card against the CPU
+    plain path; (d) the serve launcher serves the step-8 checkpoint with
+    ``--ckpt --packed`` (210 SWIS launches a model dispatch, the gather
+    path), an engine with the paged kernel serves the same packed weights
+    (210 SWIS a model call, 30 paged an arena call), and at a 4-layer cut
+    greedy tokens equal the CPU plain path's; (e) one QAT step of each
+    family's smoke config on the card against the CPU. Returns (launches
+    by path, seconds by part)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.core import swis
+    from repro_torch.core.qat import quantize_tree
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import params as pp
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.serve import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.train.steps import make_train_step
+
+    secs = {}
+    work = ROOT / "build" / "qat_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        # (a) train through the launcher
+        t0 = time.perf_counter()
+        args = train_launcher.parse_args(QAT_ARGV + ["--workdir",
+                                                     str(work / "a")])
+        cfg = configs.get_config("smollm-135m")
+        torch.cuda.reset_peak_memory_stats()
+        out = train_launcher.run(args)
+        recs = out["records"]
+        check(len(recs) == 8 and all(np.isfinite(r["loss"]) for r in recs),
+              f"QAT training: losses {[r['loss'] for r in recs]}")
+        for r in recs:
+            d = r["part_ms"]
+            print(f"phase 10 (a) on {card}: step {r['step']}: loss "
+                  f"{r['loss']:.6f}, wall {r['wall_ms']:.1f} ms, "
+                  f"{r['clock']} ms between events: QAT selection "
+                  f"{d['select']:.2f}, forward + backward "
+                  f"{d['fwd_bwd']:.2f}, optimizer "
+                  f"{d['optim']:.2f}; {r['tokens_per_s']:.0f} tokens/s; "
+                  f"peak {r.get('peak_gb', 0):.3f} GB; selection "
+                  f"{r['selection_passes']} passes over "
+                  f"{r['selection_combos']} combos")
+        state = out["state"]
+        # one more step under the profiler: device busy, and the kernels
+        # of the selection alone
+        tr_cfg = cfg.replace(quant=qat_policy())
+        pipe = SyntheticPipeline(tr_cfg, 256, 16, seed=0)
+        step_fn = make_train_step(Model(tr_cfg), AdamW(),
+                                  warmup_cosine(3e-3, 20, 8))
+        batch = to_device(pipe.batch_at(8), dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            _, m = step_fn(state, batch)
+            float(m["loss"])
+            wall = (time.perf_counter() - t1) * 1e3
+        busy = device_ms(prof)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with torch.no_grad():
+                quantize_tree(state.params, tr_cfg.quant.cfg)
+            torch.cuda.synchronize()
+        n_sel = sum(e.count for e in prof.key_averages()
+                    if getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)) > 0)
+        sel_ms = device_ms(prof)
+        print(f"phase 10 (a): a profiled step (step 9): wall {wall:.1f} ms, "
+              f"device busy {busy:.2f} ms (idle share "
+              f"{max(0.0, 1 - busy / wall):.3f}); the QAT selection alone: "
+              f"{n_sel} kernel launches, {sel_ms:.2f} ms busy, chunk "
+              f"{swis.FAKE_QUANT_CHUNK_ELEMS} magnitudes a pass")
+        secs["10 (a)"] = time.perf_counter() - t0
+
+        # (b) resume from step 4 in a fresh trainer
+        t0 = time.perf_counter()
+        shutil.copytree(work / "a" / "step_00000004",
+                        work / "b" / "step_00000004")
+        args_b = train_launcher.parse_args(QAT_ARGV + ["--workdir",
+                                                       str(work / "b")])
+        out_b = train_launcher.run(args_b)
+        want = [r["loss"] for r in recs[4:]]
+        got = [r["loss"] for r in out_b["records"]]
+        check(got == want, f"resume from step 4: losses {got} != {want}")
+        diff = []
+        _zip(lambda a, b: diff.append(not torch.equal(a, b)),
+             out_b["state"].params, state.params)
+        check(not any(diff), f"resume from step 4: {sum(diff)} param leaves "
+              f"differ after step 8")
+        print(f"phase 10 (b): resumed at step 4 in a fresh trainer; steps 5-8 "
+              f"losses {got} equal (a)'s bit for bit, and so do the step-8 "
+              f"params")
+        del out_b
+        secs["10 (b)"] = time.perf_counter() - t0
+
+        # (c) the same initial params cut to 2 layers: card against CPU
+        t0 = time.perf_counter()
+        init = pp.init_params(Model(cfg).build(),
+                              torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+        cut_cfg = tr_cfg.replace(n_layers=QAT_CUT, compute_dtype="float32")
+        cut = {k: v for k, v in init.items() if k != "blocks"}
+        cut["blocks"] = pp.tree_map(lambda a: a[:QAT_CUT].contiguous(),
+                                    init["blocks"])
+        cut_cpu = pp.tree_map(lambda a: a.cpu(), cut)
+        del init, cut
+        cbatch = {k: torch.from_numpy(v[:2]) for k, v in
+                  SyntheticPipeline(cut_cfg, 256, 16, seed=0).batch_at(0)
+                  .items()}
+        print("phase 10 (c) on " + card + ": " + qat_step_both(
+            f"smollm-135m at {QAT_CUT} layers, 2 x 256 tokens", cut_cfg,
+            cut_cpu, cbatch, dev))
+        del cut_cpu
+        secs["10 (c)"] = time.perf_counter() - t0
+
+        # (d) serve the step-8 checkpoint
+        t0 = time.perf_counter()
+        del state, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path = {}
+        for kern in kernels:
+            kern.launches = 0
+        report, eng = serve_launcher.run(serve_launcher.parse_args(
+            ["--arch", "smollm-135m", "--ckpt", str(work / "a"), "--packed",
+             "--requests", "8", "--prompt-len", "64", "--tokens", "32",
+             "--n-slots", "4"]))
+        counts = {kern.name: kern.launches for kern in kernels}
+        by_path["10 (d) launcher --ckpt --packed"] = counts
+        calls = eng.metrics()["engine"]["counters"]["step.model_dispatches"]
+        per_call = 7 * cfg.n_layers
+        check(counts == {"swis_matmul": per_call * calls,
+                         "paged_attention": 0},
+              f"launcher --ckpt: launches {counts} != {per_call} SWIS x "
+              f"{calls} model dispatches and no paged launch")
+        print(f"phase 10 (d) on {card}: launcher --ckpt --packed served the "
+              f"step-8 checkpoint: {calls} model dispatches, launches "
+              f"{counts}, {report['tok_per_s']} tokens/s, compression "
+              f"{report['compression']}x")
+        packed = eng.params
+        serve_cfg = eng.cfg
+        del eng
+        ecfg = EngineConfig(n_slots=4, block_size=8, packed=True,
+                            use_paged_kernel=True, max_len=128,
+                            quant_cfg=tr_cfg.quant.cfg)
+        reqs = prompts(cfg.vocab)
+        paged = ContinuousBatchingEngine(serve_cfg, packed, ecfg, device=dev)
+        for kern in kernels:
+            kern.launches = 0
+        toks, _, _ = serve(paged, reqs, 32)
+        counts = {kern.name: kern.launches for kern in kernels}
+        by_path["10 (d) paged engine"] = counts
+        want = {"swis_matmul": per_call * paged.model_calls(),
+                "paged_attention": cfg.n_layers * paged.arena_calls()}
+        check(counts == want, f"trained weights, paged engine: launches "
+              f"{counts} != {want}")
+        for t in toks:
+            check(len(t) == 32 and int(t.min()) >= 0
+                  and int(t.max()) < cfg.vocab, f"bad token output {t}")
+        cfg4, cut4, cut4_cpu = layer_cut(serve_cfg, packed)
+        toks_card, _, _ = serve(ContinuousBatchingEngine(
+            cfg4, cut4, ecfg, device=dev), reqs, 32)
+        cpu = ContinuousBatchingEngine(cfg4, cut4_cpu, ecfg, device="cpu")
+        toks_cpu, _, _ = serve(cpu, reqs, 32)
+        same_tokens("phase 10 (d) (4-layer cut of the trained weights) vs "
+                    "the CPU plain path", toks_card, toks_cpu,
+                    [(p, 32) for p in reqs],
+                    [("card", cpu.model, cut4, dev),
+                     ("cpu", cpu.model, cut4_cpu, "cpu")])
+        print(f"phase 10 (d): a paged engine on the trained packed weights: "
+              f"{paged.model_calls()} model calls, {paged.arena_calls()} "
+              f"arena calls, launches {counts}; greedy tokens at a 4-layer "
+              f"cut: 8/8 requests identical on the card and the CPU plain "
+              f"path")
+        del paged, packed, cut4, cut4_cpu, cpu
+        secs["10 (d)"] = time.perf_counter() - t0
+
+        # (e) one QAT step of every family's smoke config
+        t0 = time.perf_counter()
+        for arch, carries in QAT_FAMILIES:
+            fcfg = configs.get_smoke(arch).replace(
+                compute_dtype="float32", quant=qat_policy())
+            params = pp.init_params(Model(fcfg).build(),
+                                    torch.Generator().manual_seed(1),
+                                    device="cpu")
+            params = _set_xgate(params, XGATE)
+            fb = {k: torch.from_numpy(v) for k, v in
+                  SyntheticPipeline(fcfg, 32, 4, seed=0).batch_at(0).items()}
+            print(f"phase 10 (e) on {card}: " + qat_step_both(
+                f"{fcfg.name} ({carries})", fcfg, params, fb, dev))
+        secs["10 (e)"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return by_path, secs
+
+
+def qat_policy():
+    """``QAT_ARGV``'s policy: SWIS QAT at n_shifts 4, group 4."""
+    from repro_torch.configs.base import QuantPolicy
+    from repro_torch.core.swis import QuantConfig
+
+    return QuantPolicy(cfg=QuantConfig(method="swis", n_shifts=N_SHIFTS,
+                                       group_size=GROUP), mode="qat")
+
+
+def _set_xgate(tree, value):
+    import torch
+
+    if not isinstance(tree, dict):
+        return tree
+    return {k: (torch.full_like(v, value) if k == "xgate"
+                else _set_xgate(v, value)) for k, v in tree.items()}
+
+
 def main() -> int:
     try:
         import torch
@@ -2460,6 +2807,18 @@ def main() -> int:
         elapsed["9"] = time.perf_counter() - t0
         print(f"[phase 9 done: {elapsed['9']:.1f} s: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in secs9.items()) + "]")
+
+        # 10. SWIS QAT training at full width, once phase 9's tensors are
+        # freed, and its checkpoint served
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with plain_weights_once():
+            qat_paths, secs10 = qat_phase(dev, card, kernels)
+        by_path.update(qat_paths)
+        elapsed["10"] = time.perf_counter() - t0
+        print(f"[phase 10 done: {elapsed['10']:.1f} s: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in secs10.items()) + "]")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

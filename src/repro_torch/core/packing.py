@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.swis import QuantizedWeight
@@ -82,6 +83,25 @@ class PackedWeight:
     c: int
     method: str = "swis"
 
+    def tree(self) -> dict:
+        return {"sign_plane": self.sign_plane,
+                "mask_planes": self.mask_planes,
+                "shifts": self.shifts, "scale": self.scale}
+
+    @property
+    def stored_bits(self) -> int:
+        """Exact metadata-true storage in bits (paper §3.3 accounting)."""
+        n_groups = (self.k // self.group_size) * self.c
+        mask_bits = self.k * self.c * self.n_shifts
+        sign_bits = self.k * self.c
+        shift_bits = n_groups * (3 if self.method == "swis_c"
+                                 else 3 * self.n_shifts)
+        return mask_bits + sign_bits + shift_bits
+
+    @property
+    def compression_ratio(self) -> float:
+        return (self.k * self.c * 8) / self.stored_bits
+
 
 def pack(qw: QuantizedWeight) -> PackedWeight:
     """Pack a :class:`QuantizedWeight` into bit planes. Columns quantized
@@ -105,6 +125,44 @@ def pack(qw: QuantizedWeight) -> PackedWeight:
         method=qw.cfg.method)
 
 
+def unpack_dense(pw: PackedWeight, dtype=torch.float32) -> torch.Tensor:
+    """Reconstruct the dense dequantized (K, C) matrix from planes, with
+    the reference's float32 arithmetic (powers of two from ``exp2``)."""
+    sign = 1.0 - 2.0 * unpack_bits_u32(pw.sign_plane).float()
+    if pw.method == "swis_c":
+        shifts = pw.shifts[..., :1].to(torch.int32) + torch.arange(
+            pw.n_shifts, dtype=torch.int32, device=pw.shifts.device)
+    else:
+        shifts = unpack_shift_nibbles(pw.shifts, pw.n_shifts)
+    acc = torch.zeros((pw.k, pw.c), dtype=torch.float32,
+                      device=pw.sign_plane.device)
+    for j in range(pw.n_shifts):
+        bits = unpack_bits_u32(pw.mask_planes[j]).float()
+        s = shifts[:, :, j].float()  # (K/M, C)
+        acc = acc + bits * torch.exp2(s.repeat_interleave(pw.group_size,
+                                                          dim=0))
+    return (sign * acc * pw.scale).to(dtype)
+
+
+def unpack_dense(pw: PackedWeight, dtype=torch.float32) -> torch.Tensor:
+    """Reconstruct the dense dequantized (K, C) matrix from planes, with
+    the reference's float32 arithmetic (powers of two from ``exp2``)."""
+    sign = 1.0 - 2.0 * unpack_bits_u32(pw.sign_plane).float()
+    if pw.method == "swis_c":
+        shifts = pw.shifts[..., :1].to(torch.int32) + torch.arange(
+            pw.n_shifts, dtype=torch.int32, device=pw.shifts.device)
+    else:
+        shifts = unpack_shift_nibbles(pw.shifts, pw.n_shifts)
+    acc = torch.zeros((pw.k, pw.c), dtype=torch.float32,
+                      device=pw.sign_plane.device)
+    for j in range(pw.n_shifts):
+        bits = unpack_bits_u32(pw.mask_planes[j]).float()
+        s = shifts[:, :, j].float()  # (K/M, C)
+        acc = acc + bits * torch.exp2(s.repeat_interleave(pw.group_size,
+                                                          dim=0))
+    return (sign * acc * pw.scale).to(dtype)
+
+
 def compression_ratio(group_size: int, n_shifts: int, method: str = "swis",
                       bits: int = 8) -> float:
     """Storage of ``bits``-bit dense weights over the packed format's
@@ -114,3 +172,23 @@ def compression_ratio(group_size: int, n_shifts: int, method: str = "swis",
     m, n = group_size, n_shifts
     shift_bits = 3 if method == "swis_c" else 3 * n
     return bits * m / (m * (1 + n) + shift_bits)
+
+
+def dpred_compression(mags: np.ndarray, group_size: int, bits: int = 8) -> float:
+    """DPRed-style lossless per-group bitwidth compression (paper Fig. 5).
+
+    Each group stores its weights with the bitwidth of the highest active
+    bit position in the group, plus sign bits and a ceil(log2(B+1))-bit
+    per-group width field."""
+    k = mags.shape[0]
+    m = group_size
+    if k % m:
+        mags = mags[: k - k % m]
+    g = mags.reshape(-1, m, *mags.shape[1:])
+    gmax = g.max(axis=1)
+    width = np.ceil(np.log2(np.maximum(gmax, 1) + 1)).astype(np.int64)
+    width = np.maximum(width, 1)
+    n_groups = width.size
+    total = ((width * m).sum() + n_groups * int(np.ceil(np.log2(bits + 1)))
+             + g.size)
+    return g.size * bits / float(total)

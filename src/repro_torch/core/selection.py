@@ -13,6 +13,12 @@ reference's choices bit for bit as long as the tie rules match: the first
 minimum over combos wins (``cost < best``), a magnitude halfway between two
 candidates rounds down (``<=``), and ``searchsorted`` is left-sided. The
 candidate tables are the reference's numpy tables (stable argsort).
+
+:func:`select_shifts_scan` is the running-min selection that packing uses;
+:func:`select_qmags` is its in-graph (fake-quant) form, which carries only
+the quantized magnitudes and the cost; :func:`select_shifts` is the
+reference's whole-table enumeration and :func:`select_shifts_bruteforce`
+its numpy oracle (small inputs only).
 """
 from __future__ import annotations
 
@@ -23,6 +29,11 @@ import numpy as np
 import torch
 
 VARIANTS = ("swis", "swis_c", "trunc")
+
+# passes of the in-graph selection (:func:`select_qmags`): "calls" counts
+# chunks, "combos" the candidate support vectors they scanned; a QAT step
+# reads them to report what its selection launched
+PASSES = {"calls": 0, "combos": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,6 +136,96 @@ def select_shifts_scan(mags: torch.Tensor, signs: torch.Tensor, *,
         shifts = torch.where(better[..., None], combos[c], shifts)
     return {"qmags": q, "shifts": shifts, "masks": masks, "combo": None,
             "cost": best_cost}
+
+
+def _tables(n_shifts: int, bits: int, variant: str, dev):
+    cand_sorted_np, order_np = _sorted_candidates(n_shifts, bits, variant)
+    combos_np = support_combos(n_shifts, bits, variant)
+    return (torch.from_numpy(cand_sorted_np).to(dev),
+            torch.from_numpy(order_np).to(dev),
+            torch.from_numpy(combos_np).to(dev))
+
+
+def select_qmags(mags: torch.Tensor, signs: torch.Tensor, *, n_shifts: int,
+                 bits: int = 8, variant: str = "swis", alpha: float = 1.0,
+                 chunk_elems: int = 1 << 24):
+    """:func:`select_shifts_scan`'s ``qmags`` and ``cost`` alone, for the
+    fake-quant path, which needs neither masks nor shifts (the reference's
+    jit drops them from its graph). ``mags``/``signs`` (G, ..., M) are
+    chunked along G so that a pass holds at most ``chunk_elems``
+    magnitudes; selection is per group, so chunking changes no result."""
+    cand_sorted, _, _ = _tables(n_shifts, bits, variant, mags.device)
+    n_combos = cand_sorted.shape[0]
+    per_row = max(mags[0].numel(), 1)
+    step = max(int(chunk_elems) // per_row, 1)
+    qs, costs = [], []
+    for i in range(0, mags.shape[0], step):
+        m, s = mags[i:i + step].contiguous(), signs[i:i + step]
+        best = torch.full(m.shape[:-1], float("inf"), dtype=torch.float32,
+                          device=m.device)
+        q = torch.zeros(m.shape, dtype=torch.float32, device=m.device)
+        for c in range(n_combos):
+            qi, _ = _nearest_sorted(cand_sorted[c], m)
+            cost = _group_cost(m, s, qi, alpha)
+            better = cost < best
+            best = torch.where(better, cost, best)
+            q = torch.where(better[..., None], qi, q)
+        qs.append(q)
+        costs.append(best)
+        PASSES["calls"] += 1
+        PASSES["combos"] += n_combos
+    if len(qs) == 1:
+        return qs[0], costs[0]
+    return torch.cat(qs), torch.cat(costs)
+
+
+def select_shifts(mags: torch.Tensor, signs: torch.Tensor, *, n_shifts: int,
+                  bits: int = 8, variant: str = "swis", alpha: float = 1.0):
+    """Exact enumeration over support vectors for grouped magnitudes: the
+    cost of every combo at once, the first minimum, then the winner's
+    nearest candidates (first minimum of the distance, i.e. the lower
+    candidate on a tie).
+
+    Args: ``mags`` (..., M) float32 integer-domain magnitudes, ``signs``
+    (..., M) in {-1, +1}. Returns dict: ``qmags`` (..., M), ``shifts``
+    (..., N) int32, ``masks`` (..., M), ``combo`` (...) and ``cost`` (...).
+    """
+    cand_sorted, order, combos = _tables(n_shifts, bits, variant,
+                                         mags.device)
+    costs = torch.stack([_group_cost(mags, signs,
+                                     _nearest_sorted(cs, mags)[0], alpha)
+                         for cs in cand_sorted])  # (C, ...)
+    best_cost = torch.amin(costs, dim=0)
+    best = torch.argmin(costs, dim=0)  # the first minimum, as jnp.argmin
+    cs_best = cand_sorted[best]  # (..., K)
+    d = torch.abs(mags[..., None] - cs_best[..., None, :])  # (..., M, K)
+    jpos = torch.argmin(d, dim=-1)
+    qmags = torch.gather(cs_best, -1, jpos)
+    masks = torch.gather(order[best], -1, jpos)
+    return {"qmags": qmags, "shifts": combos[best], "masks": masks,
+            "combo": best.to(torch.int32), "cost": best_cost}
+
+
+def select_shifts_bruteforce(mags: np.ndarray, signs: np.ndarray, *,
+                             n_shifts: int, bits: int = 8,
+                             variant: str = "swis", alpha: float = 1.0):
+    """Reference oracle in numpy: materializes every (combo, mask) pair.
+    ``mags``/``signs`` (G, M). Small inputs only."""
+    cand = combo_candidates(n_shifts, bits, variant)  # (C, K)
+    g, m = mags.shape
+    d = np.abs(mags[:, None, :, None] - cand[None, :, None, :])  # (G,C,M,K)
+    kbest = np.argmin(d, axis=-1)  # (G, C, M)
+    q = np.take_along_axis(
+        np.broadcast_to(cand[None, :, None, :], d.shape), kbest[..., None],
+        axis=-1)[..., 0]
+    err = mags[:, None, :] - q
+    signed = (signs[:, None, :] * err).sum(-1)
+    cost = alpha * signed ** 2 + (err ** 2).sum(-1)  # (G, C)
+    best = cost.argmin(axis=1)
+    ar = np.arange(g)
+    combos = support_combos(n_shifts, bits, variant)
+    return {"qmags": q[ar, best], "shifts": combos[best],
+            "masks": kbest[ar, best], "combo": best, "cost": cost[ar, best]}
 
 
 def quantize_grouped(mags: torch.Tensor, signs: torch.Tensor, *,

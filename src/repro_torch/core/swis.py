@@ -1,12 +1,22 @@
 """SWIS weight quantization (paper §2, §4): PyTorch port of ``repro.core.swis``.
 
-:func:`quantize` is the post-training path that packing and serving use:
-it returns the dequantized weights and all metadata needed for packing
-(signs / masks / shifts / scales), for the swis, swis_c and trunc methods
-and for fractional shift targets (filter scheduling, paper §4.3).
-``fake_quant`` and ``act_truncate`` (QAT and the activation-truncation
-baseline) are not ported yet: serving with ``mode="off"`` does not reach
-them.
+* :func:`quantize`     — the post-training path that packing and serving
+                         use: the dequantized weights and all metadata
+                         needed for packing (signs / masks / shifts /
+                         scales), for the swis, swis_c and trunc methods
+                         and for fractional shift targets (filter
+                         scheduling, paper §4.3).
+* :func:`fake_quant`   — quantize-dequantize only (QAT and PTQ in the
+                         loss graph); :func:`fake_quant_stack` quantizes
+                         each matrix of a stack on its own, as the
+                         reference's ``jax.vmap(fake_quant)`` does.
+* :func:`act_truncate` — the activation-truncation baseline (paper §5).
+
+Selection works on integer-domain magnitudes, so its costs are exact
+integers in float32 and the results equal the reference's bit for bit.
+The one sum that can round is a column's cost over its groups, used by
+filter scheduling at fractional ``n_shifts``: it is exact while it stays
+under 2**24.
 
 Weight layout convention: 2-D ``(K, C)`` with K the reduction (input) dim —
 groups of ``group_size`` weights are taken along K per output column C.
@@ -15,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import selection
@@ -91,6 +102,111 @@ def _floor_truncate(mags: torch.Tensor, n: int, bits: int) -> torch.Tensor:
     return torch.floor(mags / step) * step
 
 
+def _recip(x: float) -> float:
+    """float32 1/x. The reference jits its in-graph paths, and XLA turns a
+    division by a constant into a product with the constant's float32
+    reciprocal: the scales of ``fake_quant`` and ``act_truncate`` are
+    ``amax * (1/maxq)``, one ulp off ``amax / maxq`` at times."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+# The in-graph path selects over at most this many magnitudes a pass (the
+# reference never chunks it; chunking along the group axis changes no
+# result and bounds the selection's temporaries to a few hundred MB).
+FAKE_QUANT_CHUNK_ELEMS = 1 << 24
+
+
+def _stack_qmags(mags: torch.Tensor, signs: torch.Tensor, n: int,
+                 cfg: QuantConfig):
+    """Quantized magnitudes and per-column costs of a stack (B, K, C) of
+    integer-domain matrices: groups of ``group_size`` along K, each
+    selected on its own. Returns (qmags (B, K, C), column cost (B, C))."""
+    b, k, c = mags.shape
+    m = cfg.group_size
+    g_mags = mags.reshape(b, k // m, m, c).transpose(-1, -2)
+    g_signs = signs.reshape(b, k // m, m, c).transpose(-1, -2)
+    q, cost = selection.select_qmags(
+        g_mags.reshape(-1, c, m), g_signs.reshape(-1, c, m), n_shifts=n,
+        bits=cfg.bits, variant=cfg.variant, alpha=cfg.alpha,
+        chunk_elems=FAKE_QUANT_CHUNK_ELEMS)
+    q = q.reshape(b, k // m, c, m).transpose(-1, -2).reshape(b, k, c)
+    return q, cost.reshape(b, k // m, c).sum(dim=1)
+
+
+def _fake_quant_impl(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """Fake-quant of a stack (B, K, C), each (K, C) matrix with its own
+    scale, as the reference's ``_fake_quant_impl`` of one matrix. The
+    gradient flows through the scale alone: round, floor and sign have
+    zero gradient in the reference, so selection runs on detached
+    magnitudes."""
+    b, k, c = w.shape
+    maxq = float(2 ** cfg.bits - 1)
+    absw = torch.abs(w)
+    amax = (torch.amax(absw, dim=1, keepdim=True) if cfg.per_channel
+            else torch.amax(absw, dim=(1, 2), keepdim=True))
+    scale = torch.clamp_min(amax * _recip(maxq), 1e-12)
+    with torch.no_grad():
+        mags = torch.clamp(torch.round(absw / scale), 0.0, maxq).float()
+        signs = torch.where(w < 0, -1.0, 1.0).float()
+        n_lo, n_hi, frac = cfg.shift_levels()
+        if cfg.method == "trunc" and not cfg.round_trunc:
+            q = _floor_truncate(mags, max(n_lo, 1), cfg.bits)
+        elif n_lo == n_hi or not cfg.schedule or frac == 0.0:
+            q, _ = _stack_qmags(mags, signs, n_hi if n_lo != n_hi else n_lo,
+                                cfg)
+        else:
+            q_lo, cost_lo = _stack_qmags(mags, signs, n_lo, cfg)
+            q_hi, cost_hi = _stack_qmags(mags, signs, n_hi, cfg)
+            # §4.3 (in-graph form): the k_hi columns with the largest
+            # penalty for being demoted keep the higher shift count; a
+            # stable descending order puts the lower index first on ties,
+            # as the reference's top_k does
+            penalty = cost_lo - cost_hi
+            k_hi = int(round(frac * c))
+            order = torch.argsort(penalty, dim=-1, descending=True,
+                                  stable=True)
+            use_hi = torch.zeros((b, c), dtype=torch.bool, device=w.device)
+            use_hi.scatter_(1, order[:, :k_hi], True)
+            q = torch.where(use_hi[:, None, :], q_hi, q_lo)
+    return (signs * q * scale).to(w.dtype)
+
+
+def _as_stack(w: torch.Tensor, lead: int, m: int):
+    """(B, K, C) view of ``w`` — ``lead`` leading stack axes, then K (the
+    reduction axis), then anything flattened into columns — with K padded
+    with zeros to a multiple of ``m``. Returns (stack, K)."""
+    b = 1
+    for d in w.shape[:lead]:
+        b *= d
+    k = w.shape[lead]
+    w3 = w.reshape(b, k, -1)
+    if k % m:
+        w3 = torch.nn.functional.pad(w3, (0, 0, 0, (-k) % m))
+    return w3, k
+
+
+def fake_quant(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """Quantize-dequantize ``w`` under ``cfg`` (no packing).
+
+    Accepts any tensor whose *leading* axis is the reduction dim; trailing
+    axes are flattened into columns and K is zero-padded to a multiple of
+    the group size, as in the reference."""
+    if cfg.method == "none":
+        return w
+    w3, k = _as_stack(w, 0, cfg.group_size)
+    return _fake_quant_impl(w3, cfg)[:, :k].reshape(w.shape)
+
+
+def fake_quant_stack(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """:func:`fake_quant` of every ``w[i]`` on its own (its own scale, its
+    own column schedule): the reference's ``jax.vmap(fake_quant)`` over a
+    stack of layers or experts, in one selection pass."""
+    if cfg.method == "none":
+        return w
+    w3, k = _as_stack(w, 1, cfg.group_size)
+    return _fake_quant_impl(w3, cfg)[:, :k].reshape(w.shape)
+
+
 @dataclasses.dataclass
 class QuantizedWeight:
     """Full PTQ result for one (K, C) weight matrix."""
@@ -162,3 +278,21 @@ def quantize(w: torch.Tensor, cfg: QuantConfig) -> QuantizedWeight:
         qweights=(signs * qm * scale).to(w.dtype), qmags=qm, signs=signs,
         masks=masks, shifts=shifts, scale=scale, col_shifts=col_shifts,
         cost=cost, cfg=cfg)
+
+
+def rmse(w: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.mean((w - q) ** 2))
+
+
+def act_truncate(a: torch.Tensor, n_shifts: int, bits: int = 8) -> torch.Tensor:
+    """Layer-wise activation LSB truncation baseline (paper §5).
+
+    Quantizes activations to ``bits`` then zeroes the lowest ``bits-n``
+    bits (one scale for the whole tensor)."""
+    maxq = float(2 ** bits - 1)
+    amax = torch.clamp_min(torch.amax(torch.abs(a)), 1e-12)
+    scale = amax * _recip(maxq)
+    mags = torch.clamp(torch.round(torch.abs(a) / scale), 0.0, maxq)
+    step = float(2 ** (bits - n_shifts))
+    mags = torch.floor(mags / step) * step
+    return (torch.sign(a) * mags * scale).to(a.dtype)

@@ -8,8 +8,10 @@ are frozen after PTQ and the gradient is ``g @ dequant(w, keep_slices).T``,
 as the reference's custom VJP computes it.
 
 :func:`swis_matmul_experts` is the MoE expert GEMM over a packed expert
-stack, one launch for every expert; forward only (its backward comes with
-the training path).
+stack, one launch for every expert. It is differentiable in ``x`` too: the
+gradient of expert e is ``g[e] @ dequant(w[e], keep_slices).T``, as the
+reference differentiates its dequantized copy and einsum (rows shared by
+every expert get the sum over the experts, through the expansion).
 """
 from __future__ import annotations
 
@@ -60,6 +62,28 @@ def swis_matmul(x: torch.Tensor, pw: PackedWeight, *,
     return y.reshape(*shape[:-1], y.shape[-1])
 
 
+class _SwisMatmulExperts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sign, mask, shifts, scale, group, consecutive,
+                keep_slices):
+        ctx.save_for_backward(sign, mask, shifts, scale)
+        ctx.static = (group, consecutive, keep_slices, x.dtype)
+        return swis_matmul_experts_packed(
+            x, sign, mask, shifts, scale, n_shifts=int(mask.shape[-3]),
+            group=group, consecutive=consecutive, keep_slices=keep_slices)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, consecutive, keep_slices, dtype = ctx.static
+        sign, mask, shifts, scale = ctx.saved_tensors
+        w = torch.stack([
+            ref.dequant_ref(s, m, sh, sc, group=group, dtype=dtype,
+                            consecutive=consecutive, keep_slices=keep_slices)
+            for s, m, sh, sc in zip(sign, mask, shifts, scale)])
+        gx = torch.einsum("emn,ekn->emk", g.float(), w.float())
+        return (gx,) + (None,) * 7
+
+
 def swis_matmul_experts(x: torch.Tensor, leaf: dict, *,
                         consecutive: bool = False,
                         keep_slices: Optional[int] = None) -> torch.Tensor:
@@ -67,10 +91,6 @@ def swis_matmul_experts(x: torch.Tensor, leaf: dict, *,
     ``leaf`` (sign (E, K/32, N), masks (E, n, K/32, N), shifts, scale (E,
     1, N)) -> (E, M, N) float32. ``x`` is (E, M, K), or (M, K) rows that
     every expert reads. ``consecutive``: the SWIS-C shift layout."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "swis_matmul_experts is forward-only; its backward comes with "
-            "the training path")
     sign, mask, shifts = (leaf["sign_plane"], leaf["mask_planes"],
                           leaf["shifts"])
     e = sign.shape[0]
@@ -78,7 +98,6 @@ def swis_matmul_experts(x: torch.Tensor, leaf: dict, *,
         x = x.contiguous()[None].expand(e, *x.shape)
     elif not (x.stride(0) == 0 and x[0].is_contiguous()):
         x = x.contiguous()
-    return swis_matmul_experts_packed(
-        x, sign, mask, shifts, leaf["scale"], n_shifts=int(mask.shape[-3]),
-        group=sign.shape[-2] * 32 // shifts.shape[-3],
-        consecutive=consecutive, keep_slices=keep_slices)
+    return _SwisMatmulExperts.apply(
+        x, sign, mask, shifts, leaf["scale"],
+        sign.shape[-2] * 32 // shifts.shape[-3], consecutive, keep_slices)

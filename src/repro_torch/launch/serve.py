@@ -17,7 +17,9 @@ those of ``repro.launch.serve``. Weights are random, from a seeded
 ``torch.Generator``; with ``--packed`` they are drawn and packed one layer
 at a time (``serve.quantized.init_packed_params``), so a model too large
 in float32 for the card (qwen2-moe-a2.7b: ~60 GB) is served packed
-(~19 GB). ``--ckpt`` is not served yet. Compute is float32.
+(~19 GB). ``--ckpt DIR`` serves the parameters of the newest train
+state in DIR instead (a checkpoint of either package's trainer), packed
+on the device with ``--packed``. Compute is float32.
 
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --packed
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
@@ -42,6 +44,7 @@ import torch
 
 from repro_torch import configs as C
 from repro_torch import device as _device
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.swis import QuantConfig
 from repro_torch.models import params as pp
 from repro_torch.models.model import Model
@@ -50,6 +53,7 @@ from repro_torch.serve import (ContinuousBatchingEngine, DecodeEngine,
 from repro_torch.serve.engine import require_decoder
 from repro_torch.serve.metrics import format_report
 from repro_torch.serve.quantized import init_packed_params
+from repro_torch.train.steps import TrainState
 
 
 def _metrics_line(step: int, m: dict) -> str:
@@ -109,8 +113,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--n-shifts", type=int, default=4)
     ap.add_argument("--group-size", type=int, default=4)
     ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--ckpt", default=None, help="checkpoint dir to serve "
-                    "(not ported yet)")
+    ap.add_argument("--ckpt", default=None, help="checkpoint dir to serve")
     ap.add_argument("--metrics-every", type=int, default=25,
                     help="print a metrics line every N engine steps "
                          "(continuous engine; 0 disables)")
@@ -126,9 +129,6 @@ def run(args: argparse.Namespace,
     reference launcher's ``main``. ``params`` (a parameter tree on any
     device) replaces the seeded random weights, so a caller can serve
     weights it holds. Returns (the report, the engine that served it)."""
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt: the checkpoint manager is not ported yet (ROADMAP A10)")
     dev = _device.resolve(args.device)
     cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
     cfg = cfg.replace(compute_dtype="float32")
@@ -136,6 +136,12 @@ def run(args: argparse.Namespace,
     qcfg = QuantConfig(method="swis", n_shifts=args.n_shifts,
                        group_size=args.group_size)
     pack_stats = None
+    if params is None and args.ckpt:
+        # the train state's params, as the reference launcher restores them
+        state, _ = CheckpointManager(args.ckpt).restore(
+            TrainState(step=None, params=Model(cfg).build(), opt={}),
+            device=dev)
+        params = state.params
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(0)
         if args.packed:

@@ -1,9 +1,15 @@
 """Basic model layers (PyTorch port of ``repro.models.layers``).
 
 Every GEMM goes through :func:`dense`. A packed SWIS leaf runs the SWIS
-matmul op (the CUDA kernel on the card); a dense leaf is a plain matmul.
-The quantization policies that rewrite dense weights in the graph (QAT /
-PTQ fake-quant, activation truncation) are not ported yet and raise.
+matmul op (the CUDA kernel on the card); a dense leaf is a plain matmul
+under the model's quantization policy, as in the reference: activation
+truncation of x when ``act_shifts`` is set, then fake-quant of the weight
+in modes ``qat`` (straight-through gradient) and ``ptq``.
+
+The embedding gather's backward is deterministic (:class:`_Gather`): the
+card's own backward of ``tok[tokens]`` accumulates repeated tokens with
+atomics in no fixed order, and a resumed training run must repeat the
+first run bit for bit.
 """
 from __future__ import annotations
 
@@ -12,6 +18,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.packing import PackedWeight
+from repro_torch.core.qat import maybe_quant
+from repro_torch.core.swis import act_truncate
 from repro_torch.kernels import ops
 from repro_torch.models.params import P
 
@@ -87,13 +95,6 @@ def packed_weight(w: dict, cfg: ArchConfig) -> PackedWeight:
         method="swis_c" if cfg.quant.cfg.method == "swis_c" else "swis")
 
 
-def check_fake_quant(cfg: ArchConfig) -> None:
-    """Dense weights under a fake-quant policy are not served yet."""
-    if cfg.quant.mode != "off" and cfg.quant.cfg.method != "none":
-        raise NotImplementedError(
-            f"quant mode {cfg.quant.mode!r} (fake-quant) is not ported yet")
-
-
 def dense(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Linear layer under the model's quantization policy."""
     w = p["w"]
@@ -101,9 +102,8 @@ def dense(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         return ops.swis_matmul(x, packed_weight(w, cfg),
                                keep_slices=cfg.quant.keep_slices).to(x.dtype)
     if cfg.quant.act_shifts:
-        raise NotImplementedError(
-            "activation truncation (act_shifts) is not ported yet")
-    check_fake_quant(cfg)
+        x = act_truncate(x, cfg.quant.act_shifts)
+    w = maybe_quant(w, cfg.quant.cfg, cfg.quant.mode)
     return x @ w.to(x.dtype)
 
 
@@ -119,10 +119,47 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return dense(p["wo"], h, cfg)
 
 
+_GATHER_CHUNK = 8192  # positions a one-hot product of the gather's backward
+
+
+class _Gather(torch.autograd.Function):
+    """``table[ids]`` whose backward sums each id's rows in a fixed order:
+    products of the (unique ids x positions) one-hot matrix with the
+    incoming gradient, ``_GATHER_CHUNK`` positions at a time, accumulated
+    in float32 and written to the unique rows."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.shape = table.shape
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        g2 = g.reshape(flat.numel(), -1).float()
+        uniq, inv = torch.unique(flat, return_inverse=True)
+        rows = torch.zeros((uniq.numel(), g2.shape[1]), dtype=torch.float32,
+                           device=g.device)
+        for lo in range(0, flat.numel(), _GATHER_CHUNK):
+            n = min(_GATHER_CHUNK, flat.numel() - lo)
+            onehot = torch.zeros((uniq.numel(), n), dtype=torch.float32,
+                                 device=g.device)
+            onehot[inv[lo:lo + n], torch.arange(n, device=g.device)] = 1.0
+            rows += onehot @ g2[lo:lo + n]
+        grad = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        grad[uniq] = rows.to(g.dtype)
+        return grad, None
+
+
 def embed_apply(p: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    if cfg.quant.quantize_embeddings and cfg.quant.mode != "off":
-        raise NotImplementedError("embedding fake-quant is not ported yet")
-    return p["tok"][tokens].to(_dtype(cfg.compute_dtype))
+    e = p["tok"]
+    if cfg.quant.quantize_embeddings:
+        e = maybe_quant(e, cfg.quant.cfg, cfg.quant.mode)
+    rows = (_Gather.apply(e, tokens) if torch.is_grad_enabled()
+            and e.requires_grad else e[tokens])
+    return rows.to(_dtype(cfg.compute_dtype))
 
 
 def unembed_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

@@ -13,13 +13,27 @@ axis; here the units are a Python loop over it, each reading its slice (a
 view) of the stacked parameter and cache tensors, so cache writes land in
 the stacked tensors in place. ``apply`` returns the MoE blocks'
 load-balancing aux summed over the layers, as the reference does; the
-serving entry points ignore it.
+serving entry points ignore it, and :meth:`Model.loss` adds it to the
+cross-entropy.
+
+Under autograd with no cache, each unit runs under
+``torch.utils.checkpoint`` (``use_reentrant=False``) as the reference
+wraps its unit function in ``jax.checkpoint``: ``parallel.remat="full"``
+keeps only each unit's input and recomputes the unit in the backward;
+``"dots"`` also keeps the output of every plain 2-D matrix product
+(``aten.mm``: the dense GEMMs, the unembedding), the counterpart of
+``dots_with_no_batch_dims_saveable``, and recomputes the batched products
+(attention, expert einsums) and everything elementwise; ``"none"`` keeps
+everything.
 """
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import params as pp
@@ -31,6 +45,26 @@ from repro_torch.models.params import P
 
 def _layer(tree, i: int):
     return pp.tree_map(lambda a: a[i], tree)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing for ``remat="dots"``: keep plain matrix
+    products, recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    """``fn`` under the unit checkpoint ``mode`` ('none' | 'full' | 'dots')."""
+    if mode == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if mode == "dots":
+        return functools.partial(
+            _ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    return fn
 
 
 class Model:
@@ -112,27 +146,38 @@ class Model:
         else:
             positions = int(cache_index) + ar
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        # (params, cache, key, kind) of every layer: the stacked units' in
-        # depth order, then the tail's
-        layers = []
+
+        def run(x, lp, lc, keys):
+            """The layers ``keys`` [(key, kind)] of one unit (or the tail)
+            -> (x, their moe_aux summed)."""
+            aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+            for key, kind in keys:
+                x, _, aux = tfm.block_apply(
+                    lp[key], x, cfg, kind, positions=positions, ctx=ctx,
+                    # an empty block cache ("enc") is a stateless block
+                    cache=(lc[key] or None) if lc is not None else None,
+                    cache_index=cache_index, block_tables=block_tables,
+                    attend_cache=attend_cache, paged=paged, q_lens=q_lens)
+                if "moe_aux" in aux:
+                    aux_sum = aux_sum + aux["moe_aux"]
+            return x, aux_sum
+
+        unit_keys = [(f"sub{j}_{kind}", kind)
+                     for j, kind in enumerate(self.unit)]
+        unit_fn = (_remat(run, cfg.parallel.remat)
+                   if cache is None and torch.is_grad_enabled() else run)
         for i in range(self.n_units):
-            unit_params = _layer(params["blocks"], i)
             unit_cache = (_layer(cache["blocks"], i) if cache is not None
                           else None)
-            layers += [(unit_params, unit_cache, f"sub{j}_{kind}", kind)
-                       for j, kind in enumerate(self.unit)]
-        layers += [(params["tail"], cache["tail"] if cache is not None
-                    else None, f"tail{j}_{kind}", kind)
-                   for j, kind in enumerate(self.tail)]
-        for lp, lc, key, kind in layers:
-            x, _, aux = tfm.block_apply(
-                lp[key], x, cfg, kind, positions=positions, ctx=ctx,
-                # an empty block cache ("enc") is a stateless block
-                cache=(lc[key] or None) if lc is not None else None,
-                cache_index=cache_index, block_tables=block_tables,
-                attend_cache=attend_cache, paged=paged, q_lens=q_lens)
-            if "moe_aux" in aux:
-                aux_total = aux_total + aux["moe_aux"]
+            x, aux = unit_fn(x, _layer(params["blocks"], i), unit_cache,
+                             unit_keys)
+            aux_total = aux_total + aux
+        if self.tail:  # unrolled, outside the unit checkpoint
+            x, aux = run(x, params["tail"],
+                         cache["tail"] if cache is not None else None,
+                         [(f"tail{j}_{kind}", kind)
+                          for j, kind in enumerate(self.tail)])
+            aux_total = aux_total + aux
         if last_index is not None:
             b = x.shape[0]
             idx = torch.as_tensor(last_index, device=x.device).long()
@@ -142,6 +187,28 @@ class Model:
         x = norm_apply(params["final_norm"], x, cfg)
         logits = unembed_apply(params["embed"], x, cfg)
         return logits, cache, aux_total
+
+    # -- loss -----------------------------------------------------------------
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor,
+                                           Dict[str, torch.Tensor]]:
+        """Masked next-token cross-entropy (labels < 0 are masked), plus
+        the MoE load-balancing aux times ``router_aux_weight``, and the
+        masked accuracy: (total, {"loss", "ce", "aux", "accuracy"})."""
+        cfg = self.cfg
+        logits, _, aux = self.apply(params, batch)
+        labels = batch["labels"].long()
+        mask = (labels >= 0).float()
+        labels = torch.clamp_min(labels, 0)
+        logp = F.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+        denom = torch.clamp_min(mask.sum(), 1.0)
+        ce = -(ll * mask).sum() / denom
+        total = ce
+        if cfg.moe is not None:
+            total = total + cfg.moe.router_aux_weight * aux
+        acc = ((torch.argmax(logits, -1) == labels) * mask).sum() / denom
+        return total, {"loss": total, "ce": ce, "aux": aux, "accuracy": acc}
 
     # -- serving ------------------------------------------------------------
 

@@ -19,8 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (_act, check_fake_quant, is_packed,
-                                       packed_weight)
+from repro_torch.core.qat import maybe_quant
+from repro_torch.models.layers import _act, is_packed, packed_weight
 from repro_torch.models.params import P
 
 
@@ -55,7 +55,8 @@ def _experts(x: torch.Tensor, w, cfg: ArchConfig) -> torch.Tensor:
     if is_packed(w):
         return ops.swis_matmul_experts(
             x, w, consecutive=cfg.quant.cfg.method == "swis_c").to(x.dtype)
-    check_fake_quant(cfg)
+    # each expert matrix quantized on its own, as the reference's vmap
+    w = maybe_quant(w, cfg.quant.cfg, cfg.quant.mode, stacked=True)
     return torch.matmul(x, w.to(x.dtype))
 
 
@@ -63,7 +64,7 @@ def _shared(x: torch.Tensor, w, cfg: ArchConfig) -> torch.Tensor:
     """A shared expert's GEMM (2-D weight), all planes when packed."""
     if is_packed(w):
         return ops.swis_matmul(x, packed_weight(w, cfg)).to(x.dtype)
-    check_fake_quant(cfg)
+    w = maybe_quant(w, cfg.quant.cfg, cfg.quant.mode)
     return x @ w.to(x.dtype)
 
 

@@ -592,3 +592,96 @@ def test_vlm_and_encoder_on_card_match_cpu_path(cuda_device):  # noqa: F811
     got = hmodel.apply(pp.tree_map(lambda a: a.to(cuda_device), hparams),
                        {"frames": frames.to(cuda_device)})[0]
     _close(got.cpu(), want, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2-moe-a2.7b"])
+def test_qat_step_on_card_matches_cpu(cuda_device, arch):  # noqa: F811
+    """One SWIS QAT train step (float32 compute) of a smoke model on the
+    card against the CPU plain path from the same params and batch: the
+    fake-quantized weights bit-identical (integer selection), the loss
+    within rtol 1e-5, each gradient leaf within 1e-4 x its max |g|, and
+    the updated weights: none more than 2.05 x lr apart and at most 1e-4
+    of them more than 0.01 x lr (AdamW's first step moves a weight by lr x
+    g / (|g| + 1e-8), so a gradient within its rounding of 0 can move it
+    either way)."""
+    from repro_torch.configs.base import QuantPolicy
+    from repro_torch.core.qat import quantize_tree
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.steps import (init_state, make_grad_fn,
+                                         make_train_step)
+
+    fields = dict(d_model=64, n_heads=4, n_kv_heads=2, d_ff=128) if (
+        arch == "smollm-135m") else {}
+    cfg = configs.get_smoke(arch).replace(
+        compute_dtype="float32", quant=QuantPolicy(
+            cfg=swis.QuantConfig(method="swis", n_shifts=2.5), mode="qat"),
+        **fields)
+    model = Model(cfg)
+    params = pp.init_params(model.build(), torch.Generator().manual_seed(2),
+                            device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticPipeline(cfg, 32, 4, seed=1).batch_at(0).items()}
+    lr = 3e-3
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        p = pp.tree_map(lambda a: a.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            q = quantize_tree(p, cfg.quant.cfg)
+        grads, metrics = make_grad_fn(model)(p, b)
+        state, _ = make_train_step(model, AdamW(), warmup_cosine(lr, 1, 10))(
+            init_state(p), b)
+        outs.append((q, grads, state.params, float(metrics["loss"])))
+    (qc, gc, pc, lc), (qh, gh, ph, lh) = outs
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+
+    def walk(a, b, fn):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], fn)
+        else:
+            fn(a, b)
+
+    walk(qc, qh, lambda a, b: torch.testing.assert_close(
+        a.cpu(), b, rtol=0, atol=0))
+    walk(gc, gh, lambda a, b: (a is None and b is None) or torch.testing.
+         assert_close(a.cpu(), b, rtol=0, atol=1e-4 * b.abs().max().item()))
+    far, total = [], []
+
+    def params_close(a, b):
+        d = (a.cpu() - b).abs() / lr
+        assert d.max().item() <= 2.05
+        far.append(int((d > 0.01).sum()))
+        total.append(d.numel())
+
+    walk(pc, ph, params_close)
+    assert sum(far) <= 1e-4 * sum(total), (sum(far), sum(total))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_swis_expert_backward_on_card(cuda_device, shared):  # noqa: F811
+    """The expert-axis launch's x-gradient on the card against autograd
+    through its plain version (dequant, then einsum): ``g[e] @
+    dequant(w[e]).T`` for each expert, summed over the experts for rows
+    they share; fp32 within rtol 1e-5 of max |grad|."""
+    from repro_torch.serve import quantized
+
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    e, m, k, n = 8, 5, 256, 192
+    w = torch.randn((e, k, n), generator=g, device=cuda_device) * 0.05
+    leaf = quantized.pack_tree({"wi": w}, swis.QuantConfig(n_shifts=3))[0]["wi"]
+    shape = (m, k) if shared else (e, m, k)
+    x = torch.randn(shape, generator=g, device=cuda_device)
+    gy = torch.randn((e, m, n), generator=g, device=cuda_device)
+    for keep in (None, 2):
+        xa = x.clone().requires_grad_(True)
+        before = sm.KERNEL.launches
+        ops.swis_matmul_experts(xa, leaf, keep_slices=keep).backward(gy)
+        assert sm.KERNEL.launches == before + 1
+        xb = x.clone().requires_grad_(True)
+        xe = xb[None].expand(e, m, k) if shared else xb
+        ref.swis_matmul_experts_ref(
+            xe, leaf["sign_plane"], leaf["mask_planes"], leaf["shifts"],
+            leaf["scale"], group=4, keep_slices=keep).backward(gy)
+        _close(xa.grad, xb.grad, 1e-5)

@@ -130,10 +130,13 @@ def test_device_defaults_to_cuda():
         tserve.run(tserve.parse_args(BASE))
 
 
-def test_ckpt_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A10"):
+def test_ckpt_is_not_ported(tmp_path):
+    """``--ckpt`` is ported now (``tests/test_torch_checkpoint.py`` serves
+    a checkpoint): a directory that holds none raises, as the reference's
+    manager does."""
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         tserve.run(tserve.parse_args(BASE + ["--device", "cpu", "--ckpt",
-                                             "somewhere"]))
+                                             str(tmp_path / "empty")]))
 
 
 def test_serve_example_matches_static_engine(capsys):

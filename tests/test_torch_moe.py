@@ -157,7 +157,7 @@ def test_keep_slices_leaves_experts_unchanged(s):
 def test_expert_op_matches_dequant_einsum(method):
     """ops.swis_matmul_experts on the CPU against the reference's
     dequant_leaf of the stack and its einsums, shared rows and per-expert
-    rows, with ragged M."""
+    rows, with ragged M, and its x-gradient against the einsum's."""
     rng = np.random.default_rng(5)
     w = rng.normal(0, 0.05, (3, 96, 40)).astype(np.float32)
     q = dict(method=method, n_shifts=3)
@@ -175,8 +175,12 @@ def test_expert_op_matches_dequant_einsum(method):
         ops.swis_matmul_experts(torch.zeros((2, 7, 96)), tleaf)  # E mismatch
     with pytest.raises(ValueError):
         ops.swis_matmul_experts(torch.from_numpy(xe), tleaf, keep_slices=4)
-    with pytest.raises(NotImplementedError):  # forward only
-        ops.swis_matmul_experts(torch.zeros((7, 96), requires_grad=True), tleaf)
+    # differentiable in x: the gradient of the reference's einsum over its
+    # dequantized stack (rows shared by every expert sum over the experts)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    ops.swis_matmul_experts(xt, tleaf, consecutive=c).sum().backward()
+    _close(xt.grad, jax.grad(lambda a: jnp.einsum(
+        "td,edf->etf", a, jw).sum())(jnp.asarray(x)))
 
 
 @pytest.mark.parametrize("method", ["swis", "swis_c"])

@@ -33,10 +33,15 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(got["modules"]) >= 20, got["modules"]
-    # the observability modules, the launcher, the example, the MoE
-    # family, the recurrent families, the VLM, the encoder and every config
-    # are walked
-    for name in ("serve.metrics", "serve.trace", "serve.costmodel",
+    # the observability modules, the launchers, the examples, the MoE
+    # family, the recurrent families, the VLM, the encoder, every config
+    # and the training path are walked
+    for name in ("core.qat", "optim.adamw", "optim.clip", "optim.schedule",
+                 "optim.compress", "data.pipeline", "checkpoint.manager",
+                 "train.steps", "train.loop", "launch.train",
+                 "examples.common", "examples.train_swis_qat",
+                 "examples.quickstart",
+                 "serve.metrics", "serve.trace", "serve.costmodel",
                  "perfmodel.pe", "launch.serve", "examples.serve_swis",
                  "models.moe", "configs.qwen2_moe_a2_7b",
                  "configs.dbrx_132b", "models.rglru", "models.ssm",
