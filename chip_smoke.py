@@ -139,15 +139,31 @@ Phases, each fatal on failure (exit code 1, and no result line):
    path's; (e) one QAT step of each family's smoke config (dense, MoE,
    Griffin, Mamba2, the VLM with patches, the encoder with frames) on the
    card against the CPU, with (c)'s checks.
+11. the SWIS offline toolchain on smollm-135m at full width and depth
+   (random weights from a seed, SWIS group 4), once phase 10's tensors are
+   freed: (a) the cross-layer budget's sensitivity profile on the card
+   over shift levels 1-5 for all 210 GEMM units (wall s, and layer 0's
+   device-busy ms under the profiler), ``allocate`` at 2.0, 2.5 and 3.0,
+   ``quantize_with_allocation`` on the card, and at a 2-layer cut the CPU
+   plain path's profile, allocations and quantized leaves against the
+   card's; (b) the exact §4.3 filter scheduler on layer 0's seven GEMMs
+   (costs from the card, at the paper-table settings; seconds a schedule);
+   (c) the model packed at 2.5 shifts (3 planes, half of each GEMM's
+   columns scheduled at 2), phase 4's traffic through the paged engine
+   (210 SWIS launches a model call, 30 paged an arena call), greedy tokens
+   at a 4-layer cut equal to the CPU plain path's, and one decode layer's
+   GEMMs timed at 3 and 4 planes; (d) the paper's analytical performance
+   model (Table 4, the headline ratios, Fig. 1), printed as a model of the
+   paper's 28 nm accelerator and held to the reference test's ranges.
 
-The CPU checks of phases 4-10 run inside ``plain_weights_once``: the plain
+The CPU checks of phases 4-11 run inside ``plain_weights_once``: the plain
 SWIS version expands each CPU weight once, not once a model call.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (each
-kernel's launches summed over the paths of phases 4 to 10, and by path; the
+kernel's launches summed over the paths of phases 4 to 11, and by path; the
 SWIS row also carries the expert-axis launch's own numbers, phase 8's
-layers and phase 9's shapes, the paged row the qwen2-moe and VLM decode
-launches); the last is
+layers, phase 9's shapes and phase 11's 3-plane layer, the paged row the
+qwen2-moe and VLM decode launches); the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -371,9 +387,11 @@ def swis_phase(dev):
 
 
 def swis_layer_timing(dev, m, keep_slices=None, gemms=LAYER_GEMMS,
-                      timer=None):
+                      timer=None, n_shifts=N_SHIFTS):
     """One layer's GEMMs ``gemms`` (smollm-135m's 7 by default) at ``m``
-    rows of fp32 x, through the top ``keep_slices`` planes (None: all): the
+    rows of fp32 x, packed at ``n_shifts`` (2.5 packs 3 planes, half the
+    columns scheduled at 2 shifts), through the top ``keep_slices`` planes
+    (None: all): the
     kernel held against the plain version (rtol 1e-5, atol 1e-5*max|ref|),
     then the kernel, the plain version and ``torch.matmul`` on the dense
     fp32 weight those planes give (sums of per-GEMM means; the kernel and
@@ -388,10 +406,10 @@ def swis_layer_timing(dev, m, keep_slices=None, gemms=LAYER_GEMMS,
     by = set()
     per_gemm = []  # "KxN kernel/torch.matmul" in us
     for i, (k, n) in enumerate(gemms):
-        pw = packed_weight(k, n, GROUP, N_SHIFTS, "swis", 50 + i, dev)
+        pw = packed_weight(k, n, GROUP, n_shifts, "swis", 50 + i, dev)
         scale = pw.scale.reshape(-1).expand(n).contiguous()
         pwn = PackedWeight(pw.sign_plane, pw.mask_planes, pw.shifts, scale,
-                           GROUP, N_SHIFTS, k, n)
+                           GROUP, pw.n_shifts, k, n)
         x = torch.randn((m, k), device=dev)
         w = ref.dequant_ref(pw.sign_plane, pw.mask_planes, pw.shifts, scale,
                             group=GROUP, keep_slices=keep_slices)
@@ -412,7 +430,7 @@ def swis_layer_timing(dev, m, keep_slices=None, gemms=LAYER_GEMMS,
         ms += t
         lib_ms += t_lib
         per_gemm.append(f"{k}x{n} {t * 1e3:.2f}/{t_lib * 1e3:.2f}")
-        planes = N_SHIFTS if keep_slices is None else keep_slices
+        planes = pw.n_shifts if keep_slices is None else keep_slices
         nbytes = (x.numel() * 4 + pw.sign_plane.numel() * 4
                   + pw.mask_planes[0].numel() * 4 * planes + pw.shifts.numel()
                   + scale.numel() * 4 + m * n * 4)
@@ -2676,6 +2694,316 @@ def _set_xgate(tree, value):
                 else _set_xgate(v, value)) for k, v in tree.items()}
 
 
+# -- phase 11: the offline toolchain, and serving at a fractional shift count --
+
+BUDGET_LEVELS = (1, 2, 3, 4, 5)
+BUDGET_TARGETS = (2.0, 2.5, 3.0)
+BUDGET_CUT = 2  # (a)'s depth: the card against the CPU plain path
+FRACTIONAL_SHIFTS = 2.5  # the paper's Table-2 point: 3 planes, half at 2
+# (b): benchmarks/paper_tables.py's table2_scheduling settings (target,
+# levels), over costs at levels 1-4, sa_cols 8
+SCHEDULES = ((2.5, [1, 2, 3, 4]), (3.0, [2, 3, 4]))
+SCHED_GEMMS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+               ("attn", "wo"), ("mlp", "wi"), ("mlp", "wg"), ("mlp", "wo"))
+
+
+def toolchain_phase(dev, card, kernels):
+    """The SWIS offline toolchain on smollm-135m at full width and depth
+    (random weights from seed 0, ``QuantConfig(method="swis",
+    group_size=4)``): (a) ``core.budget``'s sensitivity profile on the card
+    over levels 1-5 across all 210 GEMM units (each unit's cost must not
+    grow with the shift count), ``allocate`` at 2.0, 2.5 and 3.0 (within 0.5
+    of each target; at 2.5 between the uniform-3 and uniform-2 costs),
+    ``quantize_with_allocation`` on the card, and at a 2-layer cut the CPU
+    plain path's profile within rtol 1e-5, identical allocations and
+    bit-identical quantized leaves; (b) ``core.scheduling.schedule_layer``
+    on layer 0's seven GEMMs with per-column costs from the card (equal to
+    the CPU's for the four attention GEMMs), at 2.5 over levels 1-4 and 3.0
+    over 2-4: averages equal to the targets, scheduled-3 cost at most the
+    uniform-3 cost; (c) ``pack_tree`` at 2.5 shifts (3 planes; at most half
+    of each GEMM's columns use the third), phase 4's traffic through the
+    paged engine (210 SWIS launches a model call, 30 paged an arena call),
+    greedy tokens at a 4-layer cut equal to the CPU plain path's, and one
+    decode layer's 7 GEMMs at M = 4 timed at 3 and at 4 planes (CUDA
+    events); (d) the paper's analytical performance model on the host,
+    held to the reference test's ranges. Returns (launches by path, the
+    3-plane layer's timing, seconds by part)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.core import budget, scheduling, swis
+    from repro_torch.models import params as pp
+    from repro_torch.models.model import Model
+    from repro_torch.perfmodel import evaluate
+    from repro_torch.serve import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.serve.quantized import pack_tree
+
+    secs = {}
+    cfg = configs.get_config("smollm-135m").replace(compute_dtype="float32")
+    params = pp.init_params(Model(cfg).build(),
+                            torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    qcfg = swis.QuantConfig(method="swis", group_size=GROUP)
+
+    # (a) the cross-layer budget at full width
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prof = budget.sensitivity_profile(params, qcfg, BUDGET_LEVELS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    n_units = 7 * cfg.n_layers
+    check(len(prof) == n_units, f"profile: {len(prof)} units != {n_units}")
+    for unit, costs in prof.items():
+        vals = [costs[n] for n in BUDGET_LEVELS]
+        check(all(np.isfinite(vals)) and all(
+            b <= a + 1e-9 for a, b in zip(vals, vals[1:])),
+            f"profile: {unit} cost grows with the shift count: {vals}")
+    layer0 = {"blocks": pp.tree_map(lambda a: a[:1], params["blocks"])}
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        t1 = time.perf_counter()
+        budget.sensitivity_profile(layer0, qcfg, BUDGET_LEVELS)
+        torch.cuda.synchronize()
+        wall0 = (time.perf_counter() - t1) * 1e3
+    busy0 = device_ms(p)
+    n_launch0 = sum(e.count for e in p.key_averages()
+                    if getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)) > 0)
+    print(f"phase 11 (a) on {card}: sensitivity profile of {len(prof)} "
+          f"units (7 GEMMs x {cfg.n_layers} layers, embedding excluded) over "
+          f"levels {list(BUDGET_LEVELS)}: {wall:.2f} s wall; layer 0's 7 "
+          f"units under the profiler: {wall0:.1f} ms wall, {busy0:.2f} ms "
+          f"device busy in {n_launch0} kernel launches (plain torch "
+          f"selection); every unit's cost non-increasing in the shift count")
+    sizes = budget.leaf_sizes(params)
+    uniform = {n: sum(c[n] for c in prof.values()) for n in BUDGET_LEVELS}
+    allocs = {}
+    for target in BUDGET_TARGETS:
+        a = budget.allocate(prof, sizes, target, BUDGET_LEVELS)
+        allocs[target] = a
+        check(abs(a.effective_shifts - target) < 0.5,
+              f"allocate({target}): effective {a.effective_shifts}")
+        hist = {n: sum(v == n for v in a.shifts.values())
+                for n in BUDGET_LEVELS}
+        by_gemm = {}
+        for unit, n in a.shifts.items():
+            by_gemm.setdefault("/".join(unit[-3:-1]), []).append(n)
+        print(f"phase 11 (a): allocate({target}): effective shifts "
+              f"{a.effective_shifts:.6f}, total cost {a.total_cost:.6g} "
+              f"(uniform 2: {uniform[2]:.6g}, uniform 3: {uniform[3]:.6g}); "
+              f"units by level {hist}; mean level by GEMM " + ", ".join(
+                  f"{k} {sum(v) / len(v):.2f}" for k, v in by_gemm.items()))
+    a25 = allocs[2.5]
+    check(uniform[3] - 1e-9 <= a25.total_cost <= uniform[2] + 1e-9,
+          f"allocate(2.5): cost {a25.total_cost} not between uniform 3 "
+          f"({uniform[3]}) and uniform 2 ({uniform[2]})")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    qparams = budget.quantize_with_allocation(params, qcfg, a25)
+    torch.cuda.synchronize()
+    qsecs = time.perf_counter() - t1
+    changed = []
+    for path, w in budget._eligible_leaves(params):
+        q = qparams
+        for k in path:
+            q = q[k]
+        changed.append(bool(torch.isfinite(q).all())
+                       and not torch.equal(q, w))
+    check(all(changed) and len(changed) == 7,
+          f"quantize_with_allocation: leaves changed and finite: {changed}")
+    check(torch.equal(qparams["embed"]["tok"], params["embed"]["tok"]),
+          "quantize_with_allocation changed the embedding")
+    print(f"phase 11 (a): quantize_with_allocation at 2.5 on the card: "
+          f"{qsecs:.2f} s, all 7 stacked GEMM leaves fake-quantized unit by "
+          f"unit, the embedding untouched")
+    del qparams
+    # the 2-layer cut on the CPU plain path against the card's units
+    t1 = time.perf_counter()
+    cut_cpu = {"blocks": pp.tree_map(lambda a: a[:BUDGET_CUT].cpu(),
+                                     params["blocks"])}
+    prof_cpu = budget.sensitivity_profile(cut_cpu, qcfg, BUDGET_LEVELS)
+    cpu_secs = time.perf_counter() - t1
+    prof_cut = {u: prof[u] for u in prof_cpu}
+    check(list(prof_cpu) == [u for u in prof if u[-1] < BUDGET_CUT],
+          "2-layer cut: the CPU profile's units differ from the card's")
+    worst = max(abs(prof_cut[u][n] - prof_cpu[u][n]) / abs(prof_cpu[u][n])
+                for u in prof_cpu for n in BUDGET_LEVELS)
+    n_equal = sum(prof_cut[u][n] == prof_cpu[u][n]
+                  for u in prof_cpu for n in BUDGET_LEVELS)
+    check(worst <= 1e-5, f"2-layer cut: profile rel diff {worst:.3g} > 1e-5")
+    cut_sizes = budget.leaf_sizes(cut_cpu)
+    cut_card = {"blocks": pp.tree_map(lambda a: a[:BUDGET_CUT],
+                                      params["blocks"])}
+    for target in BUDGET_TARGETS:
+        a_card = budget.allocate(prof_cut, cut_sizes, target, BUDGET_LEVELS)
+        a_cpu = budget.allocate(prof_cpu, cut_sizes, target, BUDGET_LEVELS)
+        check(a_card.shifts == a_cpu.shifts,
+              f"2-layer cut: allocate({target}) differs on the card")
+    q_card = budget.quantize_with_allocation(cut_card, qcfg, a_cpu)
+    q_cpu = budget.quantize_with_allocation(cut_cpu, qcfg, a_cpu)
+    for path, w in budget._eligible_leaves(q_cpu):
+        q = q_card
+        for k in path:
+            q = q[k]
+        check(torch.equal(q.cpu(), w),
+              f"2-layer cut: quantized {path} differs on the card")
+    print(f"phase 11 (a): at a {BUDGET_CUT}-layer cut the CPU plain path "
+          f"({cpu_secs:.1f} s) gives profile values within rel "
+          f"{worst:.3g} of the card's ({n_equal} of "
+          f"{len(prof_cpu) * len(BUDGET_LEVELS)} equal), identical "
+          f"allocations at {list(BUDGET_TARGETS)} and bit-identical "
+          f"fake-quantized leaves")
+    del cut_cpu, cut_card, q_card, q_cpu
+    secs["11 (a)"] = time.perf_counter() - t0
+
+    # (b) the exact scheduler on layer 0's GEMMs
+    t0 = time.perf_counter()
+    for sub, name in SCHED_GEMMS:
+        w = params["blocks"]["sub0_attn"][sub][name]["w"][0]
+        mags, signs, _ = swis._to_int_domain(w, qcfg.bits, qcfg.per_channel)
+        costs = {n: swis._column_costs(mags, signs, n, qcfg)[1].cpu().numpy()
+                 for n in (1, 2, 3, 4)}
+        if sub == "attn":
+            m_c, s_c, _ = swis._to_int_domain(w.cpu(), qcfg.bits,
+                                              qcfg.per_channel)
+            for n in costs:
+                c_cpu = swis._column_costs(m_c, s_c, n, qcfg)[1].numpy()
+                check(np.array_equal(costs[n], c_cpu),
+                      f"scheduler costs of {sub}/{name} at {n} shifts "
+                      f"differ on the card")
+        uniform3 = float(costs[3].astype(np.float64).sum())
+        line = []
+        for target, levels in SCHEDULES:
+            t1 = time.perf_counter()
+            sched = scheduling.schedule_layer(lambda n: costs[n], target,
+                                              levels=levels, sa_cols=8)
+            dt = time.perf_counter() - t1
+            check(sched.effective_shifts == target,
+                  f"schedule {sub}/{name} at {target}: average "
+                  f"{sched.effective_shifts}")
+            if target == 3.0:
+                check(sched.total_cost <= uniform3,
+                      f"schedule {sub}/{name} at 3.0: cost "
+                      f"{sched.total_cost} > uniform 3 {uniform3}")
+            n_groups = w.shape[1] // 8
+            lv, cnt = np.unique(sched.group_shifts, return_counts=True)
+            line.append(
+                f"{target} over {levels}: {dt:.3f} s, groups by level "
+                f"{dict(zip(lv.tolist(), cnt.tolist()))}, cost "
+                f"{sched.total_cost:.6g} ("
+                f"{scheduling.n_sequences(n_groups, len(levels))} "
+                f"sequences enumerated)")
+        print(f"phase 11 (b): schedule_layer {sub}/{name} ({w.shape[0]}x"
+              f"{w.shape[1]}, {w.shape[1] // 8} groups of 8; uniform 3 cost "
+              f"{uniform3:.6g}): " + "; ".join(line))
+    print("phase 11 (b): every schedule's average equals its target; "
+          "scheduled-3 costs at most uniform-3; the attention GEMMs' costs "
+          "equal on the card and the CPU")
+    secs["11 (b)"] = time.perf_counter() - t0
+
+    # (c) serving at 2.5 shifts: 3 planes, half the columns at 2
+    t0 = time.perf_counter()
+    q25 = swis.QuantConfig(method="swis", n_shifts=FRACTIONAL_SHIFTS,
+                           group_size=GROUP)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    packed, stats = pack_tree(params, q25)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t1
+    del params
+    for sub, name in SCHED_GEMMS:
+        planes = packed["blocks"]["sub0_attn"][sub][name]["w"][
+            "mask_planes"]
+        check(planes.shape[-3] == 3, f"{sub}/{name}: {planes.shape[-3]} "
+              f"planes packed at {FRACTIONAL_SHIFTS} shifts")
+        hi = (planes[:, 2] != 0).any(dim=1).sum(dim=-1)  # columns using 3
+        c = planes.shape[-1]
+        check(bool((hi <= c // 2).all()) and bool((hi >= 0.45 * c).all()),
+              f"{sub}/{name}: columns with a third plane by layer "
+              f"{hi.tolist()} of {c}")
+    layers_gb = tree_bytes(packed["blocks"]) / 1e9
+    print(f"phase 11 (c) on {card}: pack_tree at n_shifts "
+          f"{FRACTIONAL_SHIFTS}: {stats['n_packed']} stacked GEMM leaves "
+          f"in {pack_s:.1f} s, 3 planes (half of each GEMM's columns "
+          f"scheduled at 2 shifts, the others at 3), layers "
+          f"{layers_gb:.4f} GB packed, {tree_bytes(packed) / 1e9:.4f} GB "
+          f"with the float32 embedding, compression "
+          f"{stats['compression']:.3f}x vs int8")
+    ecfg = EngineConfig(n_slots=4, block_size=8, packed=True,
+                        use_paged_kernel=True, max_len=128, quant_cfg=q25)
+    eng = ContinuousBatchingEngine(cfg, packed, ecfg, device=dev)
+    reqs = prompts(cfg.vocab)
+    for kern in kernels:  # count only this path's launches
+        kern.launches = 0
+    toks, pre, dec = serve(eng, reqs, 32)
+    counts = {kern.name: kern.launches for kern in kernels}
+    check_dispatches("phase 11 (c)", eng)
+    want = {"swis_matmul": n_units * eng.model_calls(),
+            "paged_attention": cfg.n_layers * eng.arena_calls()}
+    check(counts == want, f"phase 11 (c): launches {counts} != {want}")
+    for t in toks:
+        check(len(t) == 32 and int(t.min()) >= 0 and int(t.max()) < cfg.vocab,
+              f"bad token output {t}")
+    dec_ms = 1e3 * sum(d for d, _ in dec) / len(dec)
+    print(f"phase 11 (c): {eng.model_calls()} model calls, "
+          f"{eng.arena_calls()} arena calls, launches {counts}; decode-only "
+          f"steps {len(dec)} at {dec_ms:.2f} ms/step wall")
+    breakdown(eng, reqs[:4])
+    cfg4, cut4, cut4_cpu = layer_cut(cfg, eng.params)
+    toks_card, _, _ = serve(ContinuousBatchingEngine(cfg4, cut4, ecfg,
+                                                     device=dev), reqs, 32)
+    cpu = ContinuousBatchingEngine(cfg4, cut4_cpu, ecfg, device="cpu")
+    toks_cpu, _, _ = serve(cpu, reqs, 32)
+    same_tokens("phase 11 (c) (4-layer cut at 2.5 shifts) vs the CPU plain "
+                "path", toks_card, toks_cpu, [(p, 32) for p in reqs],
+                [("card", cpu.model, cut4, dev),
+                 ("cpu", cpu.model, cut4_cpu, "cpu")])
+    print("phase 11 (c): greedy tokens at a 4-layer cut: 8/8 requests "
+          "identical on the card and the CPU plain path")
+    del eng, packed, cut4, cut4_cpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    perf3 = swis_layer_timing(dev, 4, timer=event_ms,
+                              n_shifts=FRACTIONAL_SHIFTS)
+    perf4 = swis_layer_timing(dev, 4, timer=event_ms)
+    for label, p in (("3 planes (n_shifts 2.5)", perf3),
+                     ("4 planes (n_shifts 4)", perf4)):
+        print(f"phase 11 (c): swis_matmul decode layer (7 GEMMs at M=4, fp32 "
+              f"x), {label}, by CUDA events on {card}: kernel "
+              f"{p['ms']:.5f} ms, torch.matmul {p['library_ms']:.5f} ms, "
+              f"plain {p['plain_ms']:.4f} ms, bound {p['bound_ms']:.6f} ms "
+              f"({p['bound_by']}); max|err| {p['max_abs_err']:.3g}")
+    secs["11 (c)"] = time.perf_counter() - t0
+
+    # (d) the paper's analytical performance model, on the host
+    t0 = time.perf_counter()
+    label = ("analytical model of the paper's 28 nm accelerator, not "
+             "measured")
+    rows = evaluate.evaluate_table4()
+    for net, points in evaluate.TABLE4_POINTS.items():
+        for point in points:
+            print(f"phase 11 (d) ({label}): Table 4 {net} {point}, "
+                  f"config N frames/s frames/J: " + "; ".join(
+                      f"{r['config']} {r['n_shifts']} "
+                      f"{r['frames_per_s']:.2f} {r['frames_per_j']:.2f}"
+                      for r in rows
+                      if (r["network"], r["point"]) == (net, point)))
+    h = evaluate.headline_ratios()
+    fig1 = [r for _, r in evaluate.fig1_dram_ratio()]
+    print(f"phase 11 (d) ({label}): {len(rows)} Table-4 rows; headline "
+          + ", ".join(f"{k} {v:.4f}" for k, v in h.items())
+          + f"; Fig. 1 weight/activation DRAM ratio over ResNet-18's "
+          f"{len(fig1)} conv layers {min(fig1):.4f} to {max(fig1):.2f}")
+    check(4.5 <= h["max_speedup_vs_act_trunc"] <= 6.5
+          and 1.5 <= h["max_energy_ratio_vs_act_trunc"] <= 2.1
+          and 1.8 <= h["dram_reduction_vs_fixed8"] <= 2.6
+          and max(fig1) > 50 and min(fig1) < 1,
+          f"perf model outside the reference test's ranges: {h}")
+    secs["11 (d)"] = time.perf_counter() - t0
+    return {"11 (c) 2.5 shifts, 3 planes": counts}, perf3, secs
+
+
 def main() -> int:
     try:
         import torch
@@ -2819,6 +3147,21 @@ def main() -> int:
         elapsed["10"] = time.perf_counter() - t0
         print(f"[phase 10 done: {elapsed['10']:.1f} s: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in secs10.items()) + "]")
+
+        # 11. the offline toolchain (budget, scheduler, perf model) and
+        # serving at 2.5 shifts, once phase 10's tensors are freed
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with plain_weights_once():
+            tool_paths, three_planes, secs11 = toolchain_phase(dev, card,
+                                                               kernels)
+        by_path.update(tool_paths)
+        perf["swis_matmul"]["max_abs_err"] = max(
+            perf["swis_matmul"]["max_abs_err"], three_planes["max_abs_err"])
+        elapsed["11"] = time.perf_counter() - t0
+        print(f"[phase 11 done: {elapsed['11']:.1f} s: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in secs11.items()) + "]")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2860,6 +3203,12 @@ def main() -> int:
             "max_abs_err")
     rows[0]["vlm_encoder_shapes"] = {
         label: {k: p[k] for k in keys} for label, p in new_shapes.items()}
+    rows[0]["three_planes"] = {
+        **{k: three_planes[k] for k in keys},
+        "timed": ("one smollm-135m decode layer's 7 GEMMs at M=4 packed at "
+                  "n_shifts 2.5 (3 planes, half the columns at 2 shifts), "
+                  "fp32 x, by CUDA events behind a spin kernel; library: "
+                  "torch.matmul on the dense fp32 weight")}
     rows[1]["vlm_decode"] = {
         **{k: paged_vlm[k] for k in keys},
         "timed": (f"one {VLM_ARCH} decode launch (B 4, 32 heads over 8 of "

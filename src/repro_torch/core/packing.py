@@ -144,25 +144,6 @@ def unpack_dense(pw: PackedWeight, dtype=torch.float32) -> torch.Tensor:
     return (sign * acc * pw.scale).to(dtype)
 
 
-def unpack_dense(pw: PackedWeight, dtype=torch.float32) -> torch.Tensor:
-    """Reconstruct the dense dequantized (K, C) matrix from planes, with
-    the reference's float32 arithmetic (powers of two from ``exp2``)."""
-    sign = 1.0 - 2.0 * unpack_bits_u32(pw.sign_plane).float()
-    if pw.method == "swis_c":
-        shifts = pw.shifts[..., :1].to(torch.int32) + torch.arange(
-            pw.n_shifts, dtype=torch.int32, device=pw.shifts.device)
-    else:
-        shifts = unpack_shift_nibbles(pw.shifts, pw.n_shifts)
-    acc = torch.zeros((pw.k, pw.c), dtype=torch.float32,
-                      device=pw.sign_plane.device)
-    for j in range(pw.n_shifts):
-        bits = unpack_bits_u32(pw.mask_planes[j]).float()
-        s = shifts[:, :, j].float()  # (K/M, C)
-        acc = acc + bits * torch.exp2(s.repeat_interleave(pw.group_size,
-                                                          dim=0))
-    return (sign * acc * pw.scale).to(dtype)
-
-
 def compression_ratio(group_size: int, n_shifts: int, method: str = "swis",
                       bits: int = 8) -> float:
     """Storage of ``bits``-bit dense weights over the packed format's

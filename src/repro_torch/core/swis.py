@@ -77,13 +77,21 @@ class QuantConfig:
         return lo, hi, (t - lo) / step
 
 
+def _true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` as a true division on every device, as the reference's
+    eager ``amax / maxq`` divides: on CUDA, ATen multiplies by a Python
+    divisor's reciprocal, one ulp off at times (and a magnitude rounded
+    from that scale can then differ); a 0-d tensor divisor divides."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
 def _to_int_domain(w: torch.Tensor, bits: int, per_channel: bool):
     """Symmetric sign-magnitude quantization to B bits (Eq. 2 domain)."""
     maxq = float(2 ** bits - 1)
     absw = torch.abs(w)
     amax = (torch.amax(absw, dim=0, keepdim=True) if per_channel
             else torch.amax(absw))
-    scale = torch.clamp_min(amax / maxq, 1e-12)
+    scale = torch.clamp_min(_true_div(amax, maxq), 1e-12)
     mags = torch.clamp(torch.round(absw / scale), 0.0, maxq)
     signs = torch.where(w < 0, -1.0, 1.0)
     return mags.float(), signs.float(), scale

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -162,11 +163,40 @@ class ContinuousBatchingEngine:
     """
 
     def __init__(self, cfg: ArchConfig, params: Any,
-                 config: Optional[EngineConfig] = None, *, device="cuda"):
-        config = config or EngineConfig()
-        if not isinstance(config, EngineConfig):
-            raise TypeError(f"config must be an EngineConfig, got "
-                            f"{type(config).__name__}")
+                 config: Optional[EngineConfig] = None, *, device="cuda",
+                 **legacy):
+        """The reference's deprecated loose kwargs still work:
+        ``ContinuousBatchingEngine(cfg, params, max_len=..., n_slots=...)``
+        warns (``DeprecationWarning``) and builds ``EngineConfig(**legacy)``;
+        with ``config=`` as well it raises ``TypeError``, as does a name
+        that is not a field of the port's :class:`EngineConfig`. The
+        reference's ``paged_impl`` is not one (the tensors' device picks the
+        paged kernel or its plain version), so ``paged_impl=`` raises that
+        ``TypeError`` here."""
+        if legacy:
+            if config is not None:
+                raise TypeError(
+                    "pass either config=EngineConfig(...) or the legacy "
+                    "loose kwargs, not both")
+            known = {f.name for f in dataclasses.fields(EngineConfig)}
+            unknown = set(legacy) - known
+            if unknown:
+                raise TypeError(
+                    f"unknown engine kwargs {sorted(unknown)}; valid "
+                    f"EngineConfig fields: {sorted(known)}")
+            warnings.warn(
+                "ContinuousBatchingEngine(cfg, params, max_len=..., ...) "
+                "loose kwargs are deprecated; pass "
+                "config=EngineConfig(...) instead", DeprecationWarning,
+                stacklevel=2)
+            config = EngineConfig(**legacy)
+        elif config is None:
+            config = EngineConfig()
+        elif not isinstance(config, EngineConfig):
+            raise TypeError(
+                f"config must be an EngineConfig, got "
+                f"{type(config).__name__} (legacy positional max_len is "
+                f"not supported here — pass EngineConfig(max_len=...))")
         require_decoder(cfg)
         self.config = config
         # enable_metrics=False swaps in no-op instruments: the hot path
@@ -242,16 +272,46 @@ class ContinuousBatchingEngine:
 
     # -- request API ----------------------------------------------------
 
-    def submit(self, prompt, params: SamplingParams, extra=None) -> int:
+    def submit(self, prompt, params: Optional[SamplingParams] = None,
+               n_tokens: Optional[int] = None, temperature: float = 0.0,
+               key=None, seed: Optional[int] = None, extra=None) -> int:
         """Enqueue a request; returns its id. ``params.seed`` (or an
         explicit ``params.key``, two uint32 words) makes its sampling
         reproducible; otherwise it gets the distinct key
         ``fold_in(key(0), rid)``. ``extra`` ({name: array}, e.g. the VLM's
         ``patches`` (P, Dv)) joins the batch of the request's prefill
-        launches, stacked over the group's rows."""
-        if not isinstance(params, SamplingParams):
-            raise TypeError(f"submit() expects SamplingParams, got "
-                            f"{type(params).__name__}")
+        launches, stacked over the group's rows. The reference's legacy
+        signature ``submit(prompt, n_tokens, temperature=..., key=...,
+        seed=...)`` still works behind a ``DeprecationWarning`` (``key``:
+        two uint32 words, as ``SamplingParams.key``)."""
+        if isinstance(params, SamplingParams):
+            if (n_tokens is not None or temperature or key is not None
+                    or seed is not None):
+                raise TypeError(
+                    "legacy sampling kwargs (n_tokens/temperature/key/"
+                    "seed) cannot be combined with SamplingParams")
+        else:
+            if isinstance(params, (int, np.integer)):
+                if n_tokens is not None:
+                    raise TypeError(
+                        "got both a positional token budget and n_tokens")
+                n_tokens = int(params)
+            elif params is not None:
+                raise TypeError(
+                    f"submit() expects SamplingParams, got "
+                    f"{type(params).__name__}")
+            if n_tokens is None:
+                raise TypeError(
+                    "submit() needs a SamplingParams (or the deprecated "
+                    "n_tokens kwarg)")
+            warnings.warn(
+                "submit(prompt, n_tokens, temperature=..., key=..., "
+                "seed=...) is deprecated; pass "
+                "submit(prompt, SamplingParams(max_tokens, ...))",
+                DeprecationWarning, stacklevel=2)
+            params = SamplingParams(
+                max_tokens=int(n_tokens), temperature=temperature,
+                seed=seed if key is None else None, key=key)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size + params.max_tokens > self.max_len:
             raise ValueError(

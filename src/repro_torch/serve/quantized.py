@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import packing, selection
-from repro_torch.core.swis import QuantConfig, quantize
+from repro_torch.core.swis import QuantConfig, _true_div, quantize
 from repro_torch.models import params as pp
 
 PACKED_KEYS = ("sign_plane", "mask_planes", "shifts", "scale")
@@ -76,7 +76,7 @@ def _pack_stack(w: torch.Tensor, qcfg: QuantConfig) -> Dict[str, torch.Tensor]:
     maxq = float(2 ** qcfg.bits - 1)
     absw = torch.abs(w.float())
     amax = absw.amax(dim=-2 if qcfg.per_channel else (-2, -1), keepdim=True)
-    scale = torch.clamp_min(amax / maxq, 1e-12)  # (E, 1, C) or (E, 1, 1)
+    scale = torch.clamp_min(_true_div(amax, maxq), 1e-12)  # (E, 1, C)/(E, 1, 1)
     mags = torch.clamp(torch.round(absw / scale), 0.0, maxq)
     signs = torch.where(w < 0, -1.0, 1.0)
     n_lo, n_hi, _ = qcfg.shift_levels()

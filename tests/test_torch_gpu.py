@@ -685,3 +685,81 @@ def test_swis_expert_backward_on_card(cuda_device, shared):  # noqa: F811
             xe, leaf["sign_plane"], leaf["mask_planes"], leaf["shifts"],
             leaf["scale"], group=4, keep_slices=keep).backward(gy)
         _close(xa.grad, xb.grad, 1e-5)
+
+
+def test_budget_on_card_matches_cpu(cuda_device):  # noqa: F811
+    """The cross-layer budget at a 2-layer cut of smollm-135m at its
+    published widths (14 units): the sensitivity profile on the card within
+    rtol 1e-5 of the CPU's (the card's scale may round ``amax / 255`` one
+    ulp apart, and so a magnitude), identical allocations at 2.0, 2.5 and
+    3.0, and
+    bit-identical fake-quantized leaves; the exact scheduler's per-column
+    costs of layer 0's wq equal on both."""
+    from repro_torch.core import budget, scheduling
+
+    cfg = configs.get_config("smollm-135m").replace(n_layers=2)
+    params = pp.init_params(Model(cfg).build(),
+                            torch.Generator().manual_seed(0), device="cpu")
+    qcfg = swis.QuantConfig(method="swis", group_size=4)
+    levels = (1, 2, 3, 4, 5)
+    card = pp.tree_map(lambda a: a.to(cuda_device), params)
+    prof_card = budget.sensitivity_profile(card, qcfg, levels)
+    prof_cpu = budget.sensitivity_profile(params, qcfg, levels)
+    assert list(prof_card) == list(prof_cpu) and len(prof_cpu) == 14
+    for unit, want in prof_cpu.items():
+        for n in levels:
+            assert abs(prof_card[unit][n] - want[n]) <= 1e-5 * abs(want[n])
+    sizes = budget.leaf_sizes(params)
+    for target in (2.0, 2.5, 3.0):
+        a_card = budget.allocate(prof_card, sizes, target, levels)
+        a_cpu = budget.allocate(prof_cpu, sizes, target, levels)
+        assert a_card.shifts == a_cpu.shifts
+    q_card = budget.quantize_with_allocation(card, qcfg, a_cpu)
+    q_cpu = budget.quantize_with_allocation(params, qcfg, a_cpu)
+    for key in ("wq", "wk", "wv", "wo"):
+        assert torch.equal(q_card["blocks"]["sub0_attn"]["attn"][key]["w"]
+                           .cpu(), q_cpu["blocks"]["sub0_attn"]["attn"][key]
+                           ["w"])
+    for key in ("wi", "wg", "wo"):
+        assert torch.equal(q_card["blocks"]["sub0_attn"]["mlp"][key]["w"]
+                           .cpu(), q_cpu["blocks"]["sub0_attn"]["mlp"][key]
+                           ["w"])
+    w = params["blocks"]["sub0_attn"]["attn"]["wq"]["w"][0]
+    costs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        mags, signs, _ = swis._to_int_domain(w.to(dev), 8, False)
+        costs.append({n: swis._column_costs(mags, signs, n, qcfg)[1].cpu()
+                      for n in (1, 2, 3, 4)})
+    for n in (1, 2, 3, 4):
+        assert torch.equal(costs[0][n], costs[1][n])
+    sched = scheduling.schedule_layer(lambda n: costs[0][n], 2.5,
+                                      levels=[1, 2, 3, 4], sa_cols=8)
+    assert sched.effective_shifts == 2.5
+
+
+def test_quantize_and_pack_on_card_equal_cpu(cuda_device):  # noqa: F811
+    """SWIS quantization and packing on the card give the CPU's bits. The
+    scale ``amax / 255`` divides on both devices, as the reference does
+    (ATen on CUDA would multiply by a Python divisor's reciprocal, one ulp
+    off at times, and a magnitude rounded from that scale moves):
+    ``quantize`` at 4 and 2.5 shifts of 8 seeded matrices, and the batched
+    stack packing of ``pack_tree``."""
+    from repro_torch.serve import quantized
+
+    g = torch.Generator().manual_seed(3)
+    fields = ("qweights", "qmags", "signs", "masks", "shifts", "scale",
+              "col_shifts", "cost")
+    for _ in range(8):
+        w = torch.randn((576, 256), generator=g) * 0.05
+        for n_shifts in (4, 2.5):
+            cfg = swis.QuantConfig(n_shifts=n_shifts)
+            a = swis.quantize(w.to(cuda_device), cfg)
+            b = swis.quantize(w, cfg)
+            for f in fields:
+                assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    stack = torch.randn((3, 576, 192), generator=g) * 0.05
+    cfg = swis.QuantConfig(n_shifts=3)
+    got = quantized.pack_tree({"wi": stack.to(cuda_device)}, cfg)[0]["wi"]
+    want = quantized.pack_tree({"wi": stack}, cfg)[0]["wi"]
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k

@@ -34,9 +34,12 @@ def test_importing_the_port_loads_no_jax():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(got["modules"]) >= 20, got["modules"]
     # the observability modules, the launchers, the examples, the MoE
-    # family, the recurrent families, the VLM, the encoder, every config
-    # and the training path are walked
-    for name in ("core.qat", "optim.adamw", "optim.clip", "optim.schedule",
+    # family, the recurrent families, the VLM, the encoder, every config,
+    # the training path, the offline toolchain and the perf model are
+    # walked
+    for name in ("core.budget", "core.scheduling", "core.probability",
+                 "perfmodel.networks", "perfmodel.systolic",
+                 "perfmodel.evaluate", "core.qat", "optim.adamw", "optim.clip", "optim.schedule",
                  "optim.compress", "data.pipeline", "checkpoint.manager",
                  "train.steps", "train.loop", "launch.train",
                  "examples.common", "examples.train_swis_qat",

@@ -98,7 +98,12 @@ def check_loss_and_grads(arch):
 
 def qat_configs(dtype, n_shifts, arch="smollm-135m", **parallel):
     """``bridged_smoke(arch)`` under SWIS QAT at ``n_shifts`` in both
-    packages, at compute ``dtype``, with ``parallel`` fields set."""
+    packages, at compute ``dtype``, with ``parallel`` fields set. The JAX
+    params are a copy: the reference's ``Trainer`` donates its state, and
+    ``bridged_smoke``'s arrays are shared by every later test of the
+    process (a serve parity file after this one found them deleted)."""
+    import jax
+    import jax.numpy as jnp
     from repro.configs.base import ParallelConfig as JParallel
     from repro.configs.base import QuantPolicy as JPolicy
     from repro.core.swis import QuantConfig as JQuant
@@ -107,6 +112,7 @@ def qat_configs(dtype, n_shifts, arch="smollm-135m", **parallel):
     from torch_port import bridged_smoke
 
     jcfg, tcfg, jparams, tparams = bridged_smoke(arch=arch)
+    jparams = jax.tree.map(jnp.array, jparams)
     q = dict(method="swis", n_shifts=n_shifts)
     jcfg = jcfg.replace(compute_dtype=dtype, quant=JPolicy(
         cfg=JQuant(**q), mode="qat"),
