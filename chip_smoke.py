@@ -155,16 +155,40 @@ Phases, each fatal on failure (exit code 1, and no result line):
    GEMMs timed at 3 and 4 planes; (d) the paper's analytical performance
    model (Table 4, the headline ratios, Fig. 1), printed as a model of the
    paper's 28 nm accelerator and held to the reference test's ranges.
+12. parallel and the dry-run on ``torch.distributed``, once phase 11's
+   tensors are freed: (a) phase 10's smollm-135m QAT settings, 4 steps,
+   through ``repro_torch.launch.train`` unsharded and then with
+   ``--mesh-data 1 --mesh-model 1`` on a one-rank NCCL group: the losses
+   side by side (equal within 1e-3 of the first; their largest
+   difference printed), the placements of ``wq``, and the sharded
+   fake-quant of the trained ``wq`` bit-identical to the unsharded one;
+   (b) the port's dry-run on the host as rank 0 of a fake 256-rank group
+   on the (16, 16) mesh: mistral-large-123b and dbrx-132b ``decode_32k``
+   and smollm-135m ``train_4k``, each record's per-device memory, FLOPs,
+   collective wire bytes and counts and roofline terms on the H100's
+   constants, printed as predictions of a trace; (c) rank 0 of
+   mistral-large-123b's ``decode_32k`` on that mesh under the fake group,
+   its shards on the card (packed, 4 planes, group 4: layer 0's local
+   weights drawn from a seed and packed here, their planes in all 88
+   layers; the bf16 cache's 2048 of 32768 positions for 8 rows):
+   ``memory_allocated`` against (b)'s argument bytes, one decode step
+   with 7 SWIS launches a layer (616) and none paged, its wall and
+   device-busy ms, and the SWIS kernel held against its plain version and
+   timed at rank 0's local GEMM shapes beside its byte bound and
+   ``torch.matmul``; then the same for dbrx-132b's rank 0 (one expert of
+   16 a rank: 7 SWIS launches a layer, 280, 3 of them expert-axis), but
+   the timing. Every number of (c) is one rank of 256 with the
+   collectives not executed; no value of it is compared or reported.
 
 The CPU checks of phases 4-11 run inside ``plain_weights_once``: the plain
 SWIS version expands each CPU weight once, not once a model call.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (each
-kernel's launches summed over the paths of phases 4 to 11, and by path; the
+kernel's launches summed over the paths of phases 4 to 12, and by path; the
 SWIS row also carries the expert-axis launch's own numbers, phase 8's
-layers, phase 9's shapes and phase 11's 3-plane layer, the paged row the
-qwen2-moe and VLM decode launches); the last is
-``{"ok": true, "device": {...}}``.
+layers, phase 9's shapes, phase 11's 3-plane layer and phase 12's
+rank-local mistral-large-123b layer, the paged row the qwen2-moe and VLM
+decode launches); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3004,6 +3028,356 @@ def toolchain_phase(dev, card, kernels):
     return {"11 (c) 2.5 shifts, 3 planes": counts}, perf3, secs
 
 
+# -- phase 12: parallel and the dry-run ----------------------------------------
+
+# (a): phase 10's QAT settings, 4 steps, no checkpoints
+SHARDED_ARGV = ["--arch", "smollm-135m", "--quant", "swis", "--n-shifts",
+                "4", "--group-size", "4", "--seq", "256", "--batch", "16",
+                "--lr", "3e-3", "--warmup", "20", "--steps", "4"]
+# (b): the dry-run's cells on the single (16, 16) mesh
+DRYRUN_CELLS = (("mistral-large-123b", "decode_32k"),
+                ("dbrx-132b", "decode_32k"), ("smollm-135m", "train_4k"))
+RANK0_ARCHS, RANK0_SHAPE = ("mistral-large-123b", "dbrx-132b"), "decode_32k"
+# SWIS launches a layer: wq, wk, wv, attention wo, and MLP wi, wg, wo
+# (mistral-large) or the wi, wg, wo expert stacks (dbrx)
+RANK0_SWIS_PER_LAYER = 7
+# (c): rank 0's local GEMMs (K, N) of one mistral-large-123b layer on the
+# (16, 16) mesh: q_proj, kv_proj and mlp split 16 ways over model
+RANK0_GEMMS = [(12288, 768), (12288, 64), (12288, 64), (768, 12288),
+               (12288, 1792), (12288, 1792), (1792, 12288)]
+RANK0_LABEL = "one rank of 256; collectives not executed; values not checked"
+
+
+def _one_rank_group(backend):
+    """This process as the only rank of a ``backend`` group at
+    ``tcp://localhost`` (a free port)."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+
+
+def _fill_rank0(tree, qcfg, dev, seed):
+    """Fill rank 0's local shards of a packed serving tree in place, on the
+    card: every stacked packed leaf gets the planes of one random weight
+    of its local shape, drawn from ``seed`` and packed here (every layer
+    the same planes: nothing of the values is read), float leaves random
+    normals (norm scales ones), integer leaves zeros."""
+    import torch
+    from repro_torch.serve.quantized import _pack_matrix, is_packed
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for key, node in tree.items():
+        if is_packed(node):
+            loc = {k: v.to_local() for k, v in node.items()}
+            k = loc["sign_plane"].shape[-2] * 32
+            n = loc["sign_plane"].shape[-1]
+            w = torch.randn((k, n), generator=g, device=dev) * 0.05
+            packed = _pack_matrix(w, qcfg)
+            for name, t in loc.items():
+                t.copy_(packed[name].expand_as(t))
+        elif isinstance(node, dict):
+            _fill_rank0(node, qcfg, dev, seed + 1)
+        else:
+            t = node.to_local()
+            if not t.dtype.is_floating_point:
+                t.zero_()
+            elif key == "scale":
+                t.fill_(1.0)
+            else:
+                t.copy_(torch.randn(t.shape, generator=g, device=dev) * 0.02)
+
+
+def _hold_rank0_gemms(block, cfg, dev, m=8):
+    """Every packed leaf of rank 0's layer 0 (``block``: its sharded
+    subtree) through the wrapper that the decode step launches on its local
+    shard, at ``m`` rows, held against the plain version on the same
+    inputs: x in float32 within rtol 1e-5, atol 1e-5*max|ref| (the weights
+    of both are exact there), and in the step's compute dtype within
+    phase 1's bf16 tolerance (2e-2: the plain version rounds each scaled
+    weight to x's dtype, the kernel scales after its K loop). 2-D weights
+    go through ``ops.swis_matmul``, expert stacks through
+    ``ops.swis_matmul_experts``: ``wi`` and ``wg`` on rows that every
+    expert shares, ``wo`` on each expert's own rows. Returns
+    ([(name, local shape)], max|err| in float32, in the compute dtype)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import is_packed
+    from repro_torch.models.layers import packed_weight as packed_weight_of
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    swis_c = cfg.quant.cfg.method == "swis_c"
+    dtypes = (torch.float32, getattr(torch, cfg.compute_dtype))
+    shapes, errs = [], [0.0, 0.0]
+
+    def one(name, node):
+        leaf = {k: v.to_local()[0] for k, v in node.items()}
+        sign = leaf["sign_plane"]
+        k, n = sign.shape[-2] * 32, sign.shape[-1]
+        group = k // leaf["shifts"].shape[-3]
+        e = sign.shape[0] if sign.ndim == 3 else None
+        shapes.append((name, (e, k, n) if e else (k, n)))
+        for i, dt in enumerate(dtypes):
+            if e is None:
+                x = torch.randn((m, k), generator=g, device=dev).to(dt)
+                got = ops.swis_matmul(x, packed_weight_of(leaf, cfg),
+                                      keep_slices=cfg.quant.keep_slices)
+                want = ref.swis_matmul_ref(
+                    x, sign, leaf["mask_planes"], leaf["shifts"],
+                    leaf["scale"].reshape(-1).expand(n), group=group,
+                    consecutive=swis_c, keep_slices=cfg.quant.keep_slices)
+            else:
+                own = name.endswith("wo")
+                x = torch.randn((e, m, k) if own else (m, k), generator=g,
+                                device=dev).to(dt)
+                got = ops.swis_matmul_experts(x, leaf, consecutive=swis_c)
+                want = ref.swis_matmul_experts_ref(
+                    x if own else x[None].expand(e, m, k), sign,
+                    leaf["mask_planes"], leaf["shifts"], leaf["scale"],
+                    group=group, consecutive=swis_c)
+            tol = 1e-5 if dt == torch.float32 else 2e-2
+            top = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            errs[i] = max(errs[i], err)
+            check(torch.allclose(got, want, rtol=tol, atol=tol * top),
+                  f"rank 0's {name} {shapes[-1][1]} at M={m} {dt}: "
+                  f"max|err|={err:.3g} vs max|ref|={top:.3g}")
+
+    def walk(path, node):
+        if is_packed(node):
+            one("/".join(path), node)
+        elif isinstance(node, dict):
+            for key, v in node.items():
+                walk(path + (key,), v)
+
+    walk((), block)
+    return shapes, tuple(errs)
+
+
+def _rank0_step(arch, dev, card, kernels, card_mesh, want):
+    """Rank 0 of ``arch``'s decode_32k on ``card_mesh`` (16, 16) under the
+    fake group: its shards built and filled on the card (against ``want``,
+    the record's argument bytes), one decode step's SWIS launches (7 a
+    layer), wall and device-busy ms and its heaviest kernels. Returns the
+    step's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel import ctx as par_ctx
+
+    qcfg = qat_policy().cfg
+    cfg = dryrun.cell_cfg(configs.get_config(arch), SHAPES[RANK0_SHAPE],
+                          "qat", qcfg)
+    base = torch.cuda.memory_allocated()
+    fn, args, _, rules = dryrun.build_step(
+        cfg, SHAPES[RANK0_SHAPE], card_mesh, quant="qat", qcfg=qcfg,
+        device=dev.type)
+    params, batch, cache = args
+    _fill_rank0(params, qcfg, dev, 12)
+    for block in cache["blocks"].values():
+        for t in block.values():
+            loc = t.to_local()
+            if loc.dtype.is_floating_point:
+                loc.normal_()
+            else:  # rank 0's slots hold positions [0, 2048)
+                loc.copy_(torch.arange(loc.shape[-1], device=dev,
+                                       dtype=loc.dtype).expand_as(loc))
+    batch["tokens"].to_local().random_(0, cfg.vocab)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated() - base
+    print(f"phase 12 (c) ({RANK0_LABEL}) on {card}: {arch} {RANK0_SHAPE} "
+          f"rank 0's shards drawn from seed 12 and packed on the card (4 "
+          f"planes, group 4; layer 0's planes in all {cfg.n_layers} "
+          f"layers): memory_allocated {alloc} B ({alloc / 1e9:.3f} GB) "
+          f"against (b)'s argument bytes {want} ({want / 1e9:.3f} GB): "
+          f"{alloc - want:+d} B ({(alloc - want) / want:+.2e})")
+    check(abs(alloc - want) <= 1e-3 * want,
+          f"{arch} rank 0's shards take {alloc} B, the record says {want}")
+
+    def step():
+        with par_ctx.use_rules(rules), torch.no_grad():
+            return fn()
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t1 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t1) * 1e3
+    counts = {k.name: k.launches for k in kernels}
+    want_swis = RANK0_SWIS_PER_LAYER * cfg.n_layers
+    check(counts == {"swis_matmul": want_swis, "paged_attention": 0},
+          f"{arch} rank 0's decode step launched {counts}, expected "
+          f"{want_swis} SWIS")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    busy = device_ms(prof)
+    by_kernel = sorted(
+        ((getattr(e, "self_device_time_total", 0.0) / 1e3, e.key, e.count)
+         for e in prof.key_averages()), reverse=True)
+    swis_busy = sum(ms for ms, key, _ in by_kernel if "swis" in key)
+    print(f"phase 12 (c) ({RANK0_LABEL}) on {card}: {arch}: one decode step "
+          f"of 8 rows over rank 0's 2048 of 32768 cached positions: "
+          f"{counts['swis_matmul']} SWIS launches ({RANK0_SWIS_PER_LAYER} a "
+          f"layer x {cfg.n_layers}), 0 paged; wall {wall:.2f} ms, device "
+          f"busy {busy:.3f} ms (SWIS {swis_busy:.3f} ms); heaviest kernels "
+          f"(ms, launches): " + "; ".join(
+              f"{key[:60]} {ms:.3f} x{n}" for ms, key, n in by_kernel[:6]))
+    (block,) = params["blocks"].values()
+    shapes, (err32, err_dt) = _hold_rank0_gemms(block, cfg, dev)
+    check(len(shapes) == RANK0_SWIS_PER_LAYER,
+          f"{arch} layer 0 holds {len(shapes)} packed leaves: {shapes}")
+    check(arch != "mistral-large-123b"
+          or sorted(s for _, s in shapes) == sorted(RANK0_GEMMS),
+          f"mistral-large-123b's rank-0 shapes {shapes} are not the timed "
+          f"{RANK0_GEMMS}")
+    print(f"phase 12 (c) on {card}: {arch}: the SWIS wrappers at rank 0's "
+          f"layer-0 local shapes, on its shards, against the plain version "
+          f"at M=8: " + ", ".join(f"{n} {s}" for n, s in shapes)
+          + f"; max|err| fp32 x {err32:.3g} (rtol 1e-5, atol "
+          f"1e-5*max|ref|), {cfg.compute_dtype} x {err_dt:.3g} (2e-2)")
+    return counts
+
+
+def parallel_phase(dev, card, kernels):
+    """(a) the sharded trainer on a one-rank NCCL group and a (1, 1) mesh
+    on the card against the unsharded trainer on the same seed and
+    batches; (b) the dry-run's three cells on the host, under a fake group
+    of 256 ranks; (c) rank 0 of mistral-large-123b's and then dbrx-132b's
+    decode_32k on the (16, 16) mesh under that fake group, its shards on
+    the card: memory against (b)'s record, one decode step through the
+    SWIS kernel (launches and device-busy ms), and the SWIS wrappers at
+    each arch's rank-0 local GEMM shapes, on its shards, held against the
+    plain version; mistral-large's layer is timed too. Returns (launches by path,
+    (c)'s layer timing, seconds by part)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import configs
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.qat import quantize_tree
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.parallel import quant as pquant
+
+    secs = {}
+    # (a) the sharded trainer on a one-rank NCCL group
+    t0 = time.perf_counter()
+    unsharded = train_launcher.run(train_launcher.parse_args(
+        SHARDED_ARGV + ["--device", dev.type]))
+    _one_rank_group("nccl" if dev.type == "cuda" else "gloo")
+    try:
+        sharded = train_launcher.run(train_launcher.parse_args(
+            SHARDED_ARGV + ["--device", dev.type, "--mesh-data", "1",
+                            "--mesh-model", "1"]))
+        params = sharded["state"].params
+        wq = params["blocks"]["sub0_attn"]["attn"]["wq"]["w"]
+        qcfg = qat_policy().cfg
+        with torch.no_grad():
+            want = quantize_tree({"w": wq.to_local()}, qcfg)["w"]
+            got = quantize_tree({"w": wq}, qcfg,
+                                quant=pquant.fake_quant_dtensor)["w"]
+            got = got.to_local()
+        same_fq = torch.equal(got, want)
+        placements = tuple(wq.placements)
+        mesh_shape = tuple(wq.device_mesh.shape)
+    finally:
+        dist.destroy_process_group()
+    a, b = unsharded["losses"], sharded["losses"]
+    diff = max(abs(x - y) for x, y in zip(a, b))
+    print(f"phase 12 (a) on {card}: smollm-135m QAT (4 shifts, seq 256 x "
+          f"batch 16, bf16) through the train launcher, 4 steps: unsharded "
+          f"losses {', '.join(f'{x:.6f}' for x in a)}; --mesh-data 1 "
+          f"--mesh-model 1 (a one-rank NCCL group, mesh {mesh_shape}) "
+          f"{', '.join(f'{x:.6f}' for x in b)}; largest difference "
+          f"{diff:.3g}; wq placements {placements}; wall ms a step "
+          + ", ".join(f"{r['wall_ms']:.1f}/{q['wall_ms']:.1f}"
+                      for r, q in zip(unsharded["records"],
+                                      sharded["records"]))
+          + " (unsharded/sharded)")
+    check(len(b) == 4 and np.isfinite(b).all(), f"sharded losses {b}")
+    check(all(abs(x - y) <= 1e-6 * abs(x) for x, y in zip(a, b)),
+          f"sharded losses {b} vs unsharded {a} (rtol 1e-6)")
+    check(same_fq, "the sharded QAT fake-quant of wq differs from the "
+          "unsharded one")
+    print("phase 12 (a): the sharded fake-quant of the trained wq is "
+          "bit-identical to the unsharded quantize_tree's")
+    del unsharded, sharded, params, wq
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["12 (a)"] = time.perf_counter() - t0
+
+    # (b) the dry-run on the host, under a fake group of 256 ranks
+    t0 = time.perf_counter()
+    dryrun.fake_world(256)
+    recs = {}
+    try:
+        host_mesh = init_device_mesh("cpu", (16, 16),
+                                     mesh_dim_names=("data", "model"))
+        for arch, shape in DRYRUN_CELLS:
+            t1 = time.perf_counter()
+            rec = dryrun.lower_cell(configs.get_config(arch), SHAPES[shape],
+                                    host_mesh)
+            recs[arch, shape] = rec
+            m, c, r = rec["memory"], rec["cost"], rec["roofline"]
+            print(f"phase 12 (b) (a prediction of the dry-run, not a "
+                  f"measurement; H100 constants): {arch} {shape} on "
+                  f"(16, 16): traced in {time.perf_counter() - t1:.1f} s "
+                  f"wall; per device: argument bytes "
+                  f"{m['argument_bytes']} ({m['argument_bytes'] / 1e9:.3f} "
+                  f"GB), temp {m['temp_bytes'] / 1e9:.3f} GB, FLOPs "
+                  f"{c['flops']:.4g} (model_flops/chip "
+                  f"{rec['model_flops_per_chip']:.4g}), bytes accessed "
+                  f"{c['bytes_accessed']:.4g}, collective wire bytes "
+                  f"{c['collective_wire']:.4g}, counts "
+                  f"{rec['collective_counts']}; roofline compute "
+                  f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+                  f"collective {r['collective_s']:.4g} s -> "
+                  f"{r['bottleneck']}; SWIS launches "
+                  f"{rec['kernel_launches'].get('swis_matmul', 0)}")
+            check(rec["cost"]["flops"] > 0
+                  and rec["memory"]["argument_bytes"] > 0,
+                  f"dry-run record of {arch} {shape}: {rec}")
+        secs["12 (b)"] = time.perf_counter() - t0
+
+        # (c) rank 0 of mistral-large-123b's and dbrx-132b's decode_32k on
+        # the card, one at a time
+        t0 = time.perf_counter()
+        card_mesh = init_device_mesh(dev.type, (16, 16),
+                                     mesh_dim_names=("data", "model"))
+        counts = {}
+        for arch in RANK0_ARCHS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            counts[f"12 (c) {arch} rank 0 decode"] = _rank0_step(
+                arch, dev, card, kernels, card_mesh,
+                recs[arch, RANK0_SHAPE]["memory"]["argument_bytes"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        layer = swis_layer_timing(dev, 8, gemms=RANK0_GEMMS, timer=event_ms)
+        print(f"phase 12 (c) ({RANK0_LABEL}) on {card}: swis_matmul at rank "
+              f"0's local layer GEMMs ({RANK0_GEMMS}, M=8, fp32 x), by CUDA "
+              f"events: kernel {layer['ms']:.5f} ms, torch.matmul "
+              f"{layer['library_ms']:.5f} ms, plain {layer['plain_ms']:.4f} "
+              f"ms, bound {layer['bound_ms']:.6f} ms ({layer['bound_by']}); "
+              f"max|err| {layer['max_abs_err']:.3g}")
+        secs["12 (c)"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    return counts, layer, secs
+
+
 def main() -> int:
     try:
         import torch
@@ -3162,6 +3536,18 @@ def main() -> int:
         elapsed["11"] = time.perf_counter() - t0
         print(f"[phase 11 done: {elapsed['11']:.1f} s: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in secs11.items()) + "]")
+
+        # 12. parallel and the dry-run, once phase 11's tensors are freed
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        par_paths, rank0_layer, secs12 = parallel_phase(dev, card, kernels)
+        by_path.update(par_paths)
+        perf["swis_matmul"]["max_abs_err"] = max(
+            perf["swis_matmul"]["max_abs_err"], rank0_layer["max_abs_err"])
+        elapsed["12"] = time.perf_counter() - t0
+        print(f"[phase 12 done: {elapsed['12']:.1f} s: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in secs12.items()) + "]")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3209,6 +3595,12 @@ def main() -> int:
                   "n_shifts 2.5 (3 planes, half the columns at 2 shifts), "
                   "fp32 x, by CUDA events behind a spin kernel; library: "
                   "torch.matmul on the dense fp32 weight")}
+    rows[0]["rank0_mistral_layer"] = {
+        **{k: rank0_layer[k] for k in keys},
+        "timed": (f"rank 0's local GEMMs of one {RANK0_ARCHS[0]} layer on the "
+                  f"(16, 16) mesh {RANK0_GEMMS} at M=8, fp32 x, by CUDA "
+                  f"events behind a spin kernel; library: torch.matmul on "
+                  f"the dense fp32 weight ({RANK0_LABEL})")}
     rows[1]["vlm_decode"] = {
         **{k: paged_vlm[k] for k in keys},
         "timed": (f"one {VLM_ARCH} decode launch (B 4, 32 heads over 8 of "

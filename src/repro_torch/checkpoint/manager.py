@@ -6,7 +6,10 @@ that each package restores the other's checkpoints.
   directory is renamed — a crash mid-write never corrupts the latest
   checkpoint.
 * **Host arrays**: every leaf is copied to a full host array (``.npy``)
-  on the caller's thread.
+  on the caller's thread; a ``DTensor`` leaf is gathered whole first (a
+  collective: every rank calls ``save``, rank 0 writes).
+* **Elastic restore**: ``restore(..., shardings=)`` distributes each whole
+  array onto the current mesh, whatever mesh saved it.
 * **Retention**: keeps the newest ``keep`` checkpoints.
 * **Async**: ``save(..., blocking=False)`` hands the host arrays to a
   writer thread, so the train loop overlaps checkpoint I/O with compute.
@@ -29,6 +32,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.params import P
 
@@ -53,6 +57,10 @@ def _items(tree, prefix=""):
 
 
 def _host(leaf) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         # a copy: the caller may change the tensor while a writer thread
         # saves it
@@ -77,6 +85,24 @@ def _unflatten_into(template, flat: Dict[str, torch.Tensor], prefix=""):
     if key not in flat:
         raise KeyError(f"checkpoint missing leaf {key!r}")
     return flat[key]
+
+
+def distribute(tree, shardings):
+    """Each whole tensor of ``tree`` as a ``DTensor`` with the placements
+    of ``shardings`` (each leaf a ``(mesh, placements)`` pair)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if _is_node(tree):
+        return dataclasses.replace(tree, **{
+            f.name: distribute(getattr(tree, f.name),
+                                getattr(shardings, f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: distribute(v, shardings[k]) for k, v in tree.items()}
+    if shardings is None:
+        return tree
+    mesh, placements = shardings
+    return distribute_tensor(tree, mesh, placements, src_data_rank=None)
 
 
 class CheckpointManager:
@@ -129,6 +155,8 @@ class CheckpointManager:
              blocking: bool = True):
         flat = _flatten(tree)  # the host copy happens on the caller thread
         meta = meta or {}
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return  # rank 0 writes the gathered arrays
         if blocking:
             self._write(step, flat, meta)
         else:
@@ -142,11 +170,15 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def restore(self, template, step: Optional[int] = None, device="cpu"):
+    def restore(self, template, step: Optional[int] = None, device="cpu",
+                shardings=None):
         """Restore into the structure of ``template`` (nested dicts and
         dataclasses; its leaves only name the keys, placeholders do). Only
-        the template's leaves are read, as tensors on ``device``. Returns
-        (tree, manifest)."""
+        the template's leaves are read, as tensors on ``device``.
+        ``shardings``: a tree congruent with ``template`` whose leaves are
+        ``(mesh, placements)`` pairs (or None: a whole tensor); each array
+        becomes a ``DTensor`` of this rank's shards on the current mesh
+        (elastic restore). Returns (tree, manifest)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -161,4 +193,7 @@ class CheckpointManager:
             if key not in meta["keys"] or not os.path.exists(fn):
                 raise KeyError(f"checkpoint missing leaf {key!r}")
             flat[key] = torch.from_numpy(np.load(fn)).to(device)
-        return _unflatten_into(template, flat), meta
+        tree = _unflatten_into(template, flat)
+        if shardings is not None:
+            tree = distribute(tree, shardings)
+        return tree, meta

@@ -142,3 +142,30 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (arch x shape) cell of the dry-run."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether a shape cell applies to this arch (per-assignment skips)."""
+    if shape.kind == "decode" and not arch.has_decoder:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, "long_500k requires sub-quadratic attention (see DESIGN.md)"
+    return True, ""

@@ -34,7 +34,7 @@ def ste_quant_stack(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
     return _Ste.apply(w, cfg, True)
 
 
-def quantize_tree(params, qcfg: QuantConfig):
+def quantize_tree(params, qcfg: QuantConfig, quant=None):
     """STE fake-quant of every eligible GEMM weight leaf of a parameter
     tree, once per optimizer step.
 
@@ -43,6 +43,9 @@ def quantize_tree(params, qcfg: QuantConfig):
     reduction axis: a stacked MoE expert leaf (layers, E, K, N) is
     quantized along its layer axis with one scale for the whole stack
     (``repro.core.qat.quantize_tree`` vmaps ``ndim == 3`` leaves only).
+    ``quant(leaf, qcfg, stacked)`` replaces the STE fake-quant of a leaf:
+    the train step on a mesh passes
+    ``repro_torch.parallel.quant.fake_quant_dtensor``.
     """
     from repro_torch.serve.quantized import _eligible
 
@@ -51,6 +54,8 @@ def quantize_tree(params, qcfg: QuantConfig):
             return {k: walk(path + (k,), v) for k, v in node.items()}
         if not _eligible(path, node):
             return node
+        if quant is not None:
+            return quant(node, qcfg, node.ndim == 3)
         if node.ndim == 3:
             return ste_quant_stack(node, qcfg)
         return ste_quant(node, qcfg)

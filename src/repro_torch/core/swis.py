@@ -141,17 +141,21 @@ def _stack_qmags(mags: torch.Tensor, signs: torch.Tensor, n: int,
     return q, cost.reshape(b, k // m, c).sum(dim=1)
 
 
-def _fake_quant_impl(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+def _fake_quant_impl(w: torch.Tensor, cfg: QuantConfig,
+                     reduce_amax=None) -> torch.Tensor:
     """Fake-quant of a stack (B, K, C), each (K, C) matrix with its own
     scale, as the reference's ``_fake_quant_impl`` of one matrix. The
     gradient flows through the scale alone: round, floor and sign have
     zero gradient in the reference, so selection runs on detached
-    magnitudes."""
+    magnitudes. ``reduce_amax`` (a shard of a larger matrix) maps the
+    shard's amax to the whole matrix's."""
     b, k, c = w.shape
     maxq = float(2 ** cfg.bits - 1)
     absw = torch.abs(w)
     amax = (torch.amax(absw, dim=1, keepdim=True) if cfg.per_channel
             else torch.amax(absw, dim=(1, 2), keepdim=True))
+    if reduce_amax is not None:
+        amax = reduce_amax(amax)
     scale = torch.clamp_min(amax * _recip(maxq), 1e-12)
     with torch.no_grad():
         mags = torch.clamp(torch.round(absw / scale), 0.0, maxq).float()
@@ -193,26 +197,29 @@ def _as_stack(w: torch.Tensor, lead: int, m: int):
     return w3, k
 
 
-def fake_quant(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+def fake_quant(w: torch.Tensor, cfg: QuantConfig,
+               reduce_amax=None) -> torch.Tensor:
     """Quantize-dequantize ``w`` under ``cfg`` (no packing).
 
     Accepts any tensor whose *leading* axis is the reduction dim; trailing
     axes are flattened into columns and K is zero-padded to a multiple of
-    the group size, as in the reference."""
+    the group size, as in the reference. ``reduce_amax``: see
+    :func:`_fake_quant_impl`."""
     if cfg.method == "none":
         return w
     w3, k = _as_stack(w, 0, cfg.group_size)
-    return _fake_quant_impl(w3, cfg)[:, :k].reshape(w.shape)
+    return _fake_quant_impl(w3, cfg, reduce_amax)[:, :k].reshape(w.shape)
 
 
-def fake_quant_stack(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+def fake_quant_stack(w: torch.Tensor, cfg: QuantConfig,
+                     reduce_amax=None) -> torch.Tensor:
     """:func:`fake_quant` of every ``w[i]`` on its own (its own scale, its
     own column schedule): the reference's ``jax.vmap(fake_quant)`` over a
     stack of layers or experts, in one selection pass."""
     if cfg.method == "none":
         return w
     w3, k = _as_stack(w, 1, cfg.group_size)
-    return _fake_quant_impl(w3, cfg)[:, :k].reshape(w.shape)
+    return _fake_quant_impl(w3, cfg, reduce_amax)[:, :k].reshape(w.shape)
 
 
 @dataclasses.dataclass

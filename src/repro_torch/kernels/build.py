@@ -125,3 +125,14 @@ def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def account_meta(kernel: str, flops: float, nbytes: float) -> None:
+    """Report the cost of a launch traced on ``meta`` tensors (the
+    dry-run), where no kernel runs: every active dispatch mode that has an
+    ``account(kernel, flops, nbytes)`` method hears of it."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in _get_current_dispatch_mode_stack():
+        if hasattr(mode, "account"):
+            mode.account(kernel, flops, nbytes)

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import Kernel, stream_ptr
+from repro_torch.kernels.build import Kernel, account_meta, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -84,6 +84,20 @@ def _check_card(x, operands):
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
 
 
+def _meta_launch(x, operands, out_shape, flops_rows=None):
+    """A launch traced on ``meta`` tensors (the dry-run): the output's
+    shape, and the launch's cost reported to the tracing mode — 2 M K N
+    operations, and each operand read and the output written once (x,
+    the packed planes, shifts and scale)."""
+    k = x.shape[-1]
+    rows = x.shape[0] if flops_rows is None else flops_rows
+    out = torch.empty(out_shape, dtype=torch.float32, device="meta")
+    nbytes = sum(t.numel() * t.element_size() for t in (x,) + operands)
+    account_meta(KERNEL.name, 2.0 * rows * k * out_shape[-1],
+                 nbytes + out.numel() * 4)
+    return out
+
+
 def swis_matmul_packed(x: torch.Tensor, sign_plane: torch.Tensor,
                        mask_planes: torch.Tensor, shifts: torch.Tensor,
                        scale: torch.Tensor, *, n_shifts: int, group: int,
@@ -95,6 +109,9 @@ def swis_matmul_packed(x: torch.Tensor, sign_plane: torch.Tensor,
     """
     _check(x, sign_plane, mask_planes, shifts, scale, n_shifts, group,
            consecutive, keep_slices)
+    if x.device.type == "meta":
+        return _meta_launch(x, (sign_plane, mask_planes, shifts, scale),
+                            (x.shape[0], sign_plane.shape[-1]))
     if x.device.type == "cpu":
         return ref.swis_matmul_ref(
             x, sign_plane, mask_planes, shifts, scale, group=group,
@@ -133,6 +150,11 @@ def swis_matmul_experts_packed(x: torch.Tensor, sign_plane: torch.Tensor,
     e = sign_plane.shape[0] if sign_plane.ndim == 3 else None
     _check(x, sign_plane, mask_planes, shifts, scale, n_shifts, group,
            consecutive, keep_slices, lead=(e,))
+    if x.device.type == "meta":
+        rows = x[0] if x.stride(0) == 0 else x
+        return _meta_launch(rows, (sign_plane, mask_planes, shifts, scale),
+                            (e, x.shape[1], sign_plane.shape[-1]),
+                            flops_rows=e * x.shape[1])
     if x.device.type == "cpu":
         return ref.swis_matmul_experts_ref(
             x, sign_plane, mask_planes, shifts, scale, group=group,

@@ -11,15 +11,26 @@ With ``--quant`` other than ``none`` the model trains under SWIS QAT
 reference's (arch, steps, first and last loss, stragglers); one line a
 step on stderr gives the loss, wall ms, the device ms of the step's parts
 (QAT selection, forward + backward, optimizer), tokens/s and, on the
-card, peak memory. ``--mesh-data``/``--mesh-model`` raise: sharded
-training waits for the port of ``parallel/`` (ROADMAP queue 1, item 3).
-A run's checkpoint serves with ``python -m repro_torch.launch.serve
---arch ... --ckpt <workdir> --packed``.
+card, peak memory. A run's checkpoint serves with ``python -m
+repro_torch.launch.serve --arch ... --ckpt <workdir> --packed``.
+
+``--mesh-data D --mesh-model M`` trains sharded on a (D, M) mesh of
+``data`` x ``model`` ranks: one process a rank, under ``torchrun`` (which
+sets the rank, the world size and the rendezvous address), in an NCCL
+group on the card or a gloo group with ``--device cpu``; the world must
+be D x M. Without ``torchrun`` a one-rank mesh (1, 1) runs in the calling
+process on a group of its own at ``tcp://localhost``:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch \
+      smollm-135m --mesh-data 2 --mesh-model 2 --steps 8
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
+import socket
 import sys
 from typing import Any, Dict, Optional, Sequence
 
@@ -51,8 +62,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     choices=["none", "swis", "swis_c", "trunc"])
     ap.add_argument("--n-shifts", type=float, default=4)
     ap.add_argument("--group-size", type=int, default=4)
-    ap.add_argument("--mesh-data", type=int, default=0)
-    ap.add_argument("--mesh-model", type=int, default=0)
+    ap.add_argument("--mesh-data", type=int, default=0,
+                    help="data-parallel ranks of a sharded run (see above)")
+    ap.add_argument("--mesh-model", type=int, default=0,
+                    help="tensor-parallel ranks of a sharded run")
     return ap.parse_args(argv)
 
 
@@ -68,25 +81,66 @@ def step_line(rec: Dict[str, Any]) -> str:
     return line
 
 
+@contextlib.contextmanager
+def _mesh(args):
+    """(mesh or None, device) for the run: the (data, model) mesh over the
+    process group, which is initialized here (and destroyed after) unless
+    it already is."""
+    if not (args.mesh_data or args.mesh_model):
+        yield None, args.device
+        return
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import device as _device
+    from repro_torch.launch.mesh import make_host_mesh
+
+    shape = (max(args.mesh_data, 1), max(args.mesh_model, 1))
+    dev = _device.resolve(args.device)
+    own = not dist.is_initialized()
+    if own:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if "RANK" in os.environ:  # torchrun
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(
+                backend, init_method=f"tcp://localhost:{_free_port()}",
+                rank=0, world_size=1)
+    try:
+        if dist.get_world_size() != shape[0] * shape[1]:
+            raise ValueError(f"a {shape} mesh needs {shape[0] * shape[1]} "
+                             f"ranks, the world has {dist.get_world_size()}")
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(dev)
+        yield make_host_mesh(model=shape[1], device=dev.type), dev
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def run(args: argparse.Namespace, **trainer_kw) -> Dict[str, Any]:
     """Train as the reference launcher's ``main`` does and print its report;
     ``trainer_kw`` are further ``Trainer`` fields (``init_params``, ...).
     Returns ``Trainer.run``'s output."""
-    if args.mesh_data or args.mesh_model:
-        raise NotImplementedError(
-            "--mesh-data/--mesh-model: sharded training waits for the port "
-            "of parallel/ and launch/mesh.py (ROADMAP queue 1, item 3)")
     cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
     if args.quant != "none":
         cfg = cfg.replace(quant=QuantPolicy(
             cfg=QuantConfig(method=args.quant, n_shifts=args.n_shifts,
                             group_size=args.group_size),
             mode="qat"))
-    tr = Trainer(cfg, seq_len=args.seq, global_batch=args.batch,
-                 workdir=args.workdir, total_steps=args.steps,
-                 ckpt_every=args.ckpt_every, warmup=args.warmup,
-                 peak_lr=args.lr, device=args.device, **trainer_kw)
-    out = tr.run(args.steps)
+    with _mesh(args) as (mesh, device):
+        tr = Trainer(cfg, seq_len=args.seq, global_batch=args.batch,
+                     workdir=args.workdir, total_steps=args.steps,
+                     ckpt_every=args.ckpt_every, warmup=args.warmup,
+                     peak_lr=args.lr, device=device, mesh=mesh, **trainer_kw)
+        out = tr.run(args.steps)
     for rec in out["records"]:
         print(step_line(rec), file=sys.stderr)
     print(json.dumps({"arch": cfg.name, "steps": args.steps,

@@ -13,6 +13,17 @@ RoPE and no cache.
 
 Caches are updated in place where the reference returned updated copies
 (and donated the arena): the returned cache is the same dict, mutated.
+
+On a mesh (``shard``, :class:`repro_torch.parallel.comm.Local`) the
+projections are local shards: column-split ``wq``/``wk``/``wv`` write
+their heads, and a row-split ``wo`` leaves partial sums that one
+all-reduce adds up. Attention runs on the local heads when the shards are
+whole heads; otherwise the heads are gathered and every rank repeats it.
+A cache split over ``kv_seq`` (what the rules give a decode cache:
+``kv_seq`` precedes ``kv_heads``) is written by the rank that holds the
+slot and attended split-softmax (:func:`_split_decode`). The engine's
+modes (block tables, per-slot rows, the paged kernel) are not sharded:
+the reference's engine has no mesh either.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention import mask_value, paged_attention_decode
 from repro_torch.models.layers import build_linear, dense, rope
 from repro_torch.models.params import P
+from repro_torch.parallel import comm
 
 
 def build_attention(cfg: ArchConfig, kind: str = "self") -> dict:
@@ -132,6 +144,59 @@ def _last_writes(phys: torch.Tensor, off: torch.Tensor, arena) -> torch.Tensor:
     return last.scatter_reduce_(0, key, order, reduce="amax")[key]
 
 
+def _split_decode(q, ck, cv, cp, q_pos, *, causal, window, ax):
+    """:func:`full_attention` over a cache split along its positions over
+    ``ax``: each rank scores its slots; the max, the normalizer and the
+    weighted values are all-reduced (fp32, as ``full_attention``)."""
+    b, sq, h, dh = q.shape
+    hkv = ck.shape[2]
+    qh = q.reshape(b, sq, hkv, h // hkv, dh).float() * (dh ** -0.5)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh, ck.float())
+    qp, kp = _pos2(q_pos), _pos2(cp)
+    valid = kp[:, None, :] >= 0
+    if causal:
+        valid = valid & (kp[:, None, :] <= qp[:, :, None])
+    if window is not None:
+        valid = valid & (kp[:, None, :] > qp[:, :, None] - window)
+    s = torch.where(valid[:, None, None], s, mask_value(torch.float32))
+    m = comm.all_reduce(s.amax(dim=-1), ax, "max")
+    e = torch.exp(s - m[..., None])
+    denom = comm.all_reduce(e.sum(dim=-1), ax)
+    acc = comm.all_reduce(torch.einsum("bhgqk,bkhd->bhgqd", e, cv.float()),
+                          ax)
+    out = acc / torch.clamp_min(denom[..., None], 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
+
+
+def _write_split(cache, k, v, pos, idx: int, ax):
+    """The scalar-index writes of :func:`attention_apply` into a cache
+    whose positions are split evenly over ``ax``: each rank writes the part
+    it holds. One token wraps at the ring's end; a prompt of at least the
+    cache's length keeps its last ``cache_len`` tokens in ring order; the
+    rest must fit before the end."""
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    n_l = ck.shape[1]
+    cache_len = n_l * ax.size
+    s = k.shape[1]
+    if s >= cache_len:
+        shift = (idx + s - cache_len) % cache_len
+        k = torch.roll(k[:, -cache_len:], shift, dims=1)
+        v = torch.roll(v[:, -cache_len:], shift, dims=1)
+        pos = torch.roll(pos[..., -cache_len:], shift, dims=-1)
+        s, idx = cache_len, 0
+    lo = idx % cache_len if s == 1 else idx
+    if lo + s > cache_len:
+        raise NotImplementedError("a sharded prefill past the cache's end")
+    a, b = max(lo, ax.rank * n_l), min(lo + s, (ax.rank + 1) * n_l)
+    if a >= b:
+        return
+    src = slice(a - lo, b - lo)
+    dst = slice(a - ax.rank * n_l, b - ax.rank * n_l)
+    ck[:, dst] = k[:, src].to(ck.dtype)
+    cv[:, dst] = v[:, src].to(cv.dtype)
+    cp[..., dst] = pos[..., src].to(cp.dtype)
+
+
 def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                     positions: torch.Tensor, causal: bool = True,
                     window: Optional[int] = None,
@@ -140,7 +205,7 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                     cache_index=None,
                     block_tables: Optional[torch.Tensor] = None,
                     attend_cache: bool = False, paged: bool = False,
-                    q_lens: Optional[torch.Tensor] = None):
+                    q_lens: Optional[torch.Tensor] = None, shard=None):
     """Returns (out (B, S, D), cache_or_None).
 
     ``cache`` is a tree {'k', 'v', 'pos'} whose position plane is shared
@@ -169,16 +234,53 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     ``ctx`` (B, P, Dv) makes it cross-attention: K/V project the context,
     with no RoPE, at positions [0, P), attended without a causal mask or a
     cache.
+
+    ``shard``: the parameters (and the cache) are local shards on a mesh;
+    see the module docstring.
     """
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, s, _ = x.shape
-    q = dense(p["wq"], x, cfg).reshape(b, s, h, dh)
+    ax = comm.axis_of(shard)
+    split = {w: comm.split_at(shard, w, "w")
+             for w in ("wq", "wk", "wv", "wo")}
+    parted = any(v is not None for v in split.values())
+    split_cache = cache is not None and shard is not None
+    if split_cache and (shard.cache["k"], shard.cache["pos"]) != (-3, -1):
+        raise NotImplementedError(
+            "on a mesh a KV cache is split over its positions (K, V and "
+            "the position plane alike), not over its heads nor replicated")
+    # heads of this rank: its own when the shards are whole heads, else all
+    # of them, gathered
+    own = (split["wq"] == split["wk"] == split["wv"] == comm.COL
+           and split["wo"] == comm.ROW and h % ax.size == 0
+           and hkv % ax.size == 0)
+    hq, hk = (h // ax.size, hkv // ax.size) if own else (h, hkv)
     kv_src = ctx if ctx is not None else x
-    k = dense(p["wk"], kv_src, cfg).reshape(b, kv_src.shape[1], hkv, dh)
-    v = dense(p["wv"], kv_src, cfg).reshape(b, kv_src.shape[1], hkv, dh)
+    if parted:
+        x, kv_src = comm.copy_to(x, ax), comm.copy_to(kv_src, ax)
+
+    def proj(w, src):
+        y = dense(p[w], src, cfg)
+        return comm.gather_from(y, ax, -1) if (
+            split[w] == comm.COL and not own) else y
+
+    q = proj("wq", x).reshape(b, s, hq, dh)
+    k = proj("wk", kv_src).reshape(b, kv_src.shape[1], hk, dh)
+    v = proj("wv", kv_src).reshape(b, kv_src.shape[1], hk, dh)
 
     def project(out):
-        return dense(p["wo"], out.reshape(b, s, h * dh), cfg)
+        heads = out.shape[2]
+        out = out.reshape(b, s, heads * dh)
+        if split["wo"] is None:
+            if heads != h:
+                out = comm.gather_from(out, ax, -1)
+            return dense(p["wo"], out, cfg)
+        if split["wo"] != comm.ROW:
+            raise NotImplementedError(
+                f"attention output split {split['wo']}")
+        if heads == h:  # every head here: the rows of this rank's wo shard
+            out = comm.own_slice(comm.copy_to(out, ax), ax, -1)
+        return comm.reduce_from(dense(p["wo"], out, cfg), ax)
 
     if ctx is not None:
         kv_pos = torch.arange(ctx.shape[1], dtype=torch.int32,
@@ -195,6 +297,22 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                                 causal=causal, window=window,
                                 chunk=cfg.attn_chunk)
         return project(out), None
+    if split_cache:  # the cache's positions split over ax
+        if torch.is_tensor(cache_index) and cache_index.ndim:
+            raise NotImplementedError("per-slot cache indices on a mesh")
+        _write_split(cache, comm.all_gather(k, ax, 2) if own else k,
+                     comm.all_gather(v, ax, 2) if own else v,
+                     positions.to(torch.int32), int(cache_index), ax)
+        if s == 1:
+            out = _split_decode(comm.all_gather(q, ax, 2) if own else q,
+                                cache["k"], cache["v"], cache["pos"],
+                                positions, causal=causal, window=window,
+                                ax=ax)
+        else:  # a prefill attends over its own K/V
+            out = chunked_attention(q, k, v, q_pos=positions,
+                                    kv_pos=positions, causal=causal,
+                                    window=window, chunk=cfg.attn_chunk)
+        return project(out), cache
 
     ck, cv, cp = cache["k"], cache["v"], cache["pos"]
     cache_len = ck.shape[1]

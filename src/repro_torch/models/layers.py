@@ -10,6 +10,13 @@ The embedding gather's backward is deterministic (:class:`_Gather`): the
 card's own backward of ``tok[tokens]`` accumulates repeated tokens with
 atomics in no fixed order, and a resumed training run must repeat the
 first run bit for bit.
+
+On a mesh the appliers take ``shard`` (:class:`repro_torch.parallel.comm.
+Local`): their parameters are local shards. The MLP's hidden units split
+over the model axis as ``mlp`` divides (column-split ``wi``/``wg``,
+row-split ``wo`` whose partial sums one all-reduce adds up); the
+embedding looks up the local vocab rows, zeros elsewhere, and one
+all-reduce adds them up; the unembedding writes the local vocab columns.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from repro_torch.core.qat import maybe_quant
 from repro_torch.core.swis import act_truncate
 from repro_torch.kernels import ops
 from repro_torch.models.params import P
+from repro_torch.parallel import comm
 
 
 # ---------------------------------------------------------------------------
@@ -112,11 +120,21 @@ def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
     return F.silu(h) if kind == "silu" else F.gelu(h, approximate="tanh")
 
 
-def mlp_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
+              shard=None) -> torch.Tensor:
+    split_in = comm.split_at(shard, "wi", "w")
+    split_out = comm.split_at(shard, "wo", "w")
+    if split_in not in (None, comm.COL) or split_out not in (None, comm.ROW):
+        raise NotImplementedError(f"MLP split {split_in}, {split_out}")
+    ax = comm.axis_of(shard)
+    if split_in is not None or split_out is not None:
+        x = comm.copy_to(x, ax)
     h = _act(dense(p["wi"], x, cfg), cfg.act)
     if cfg.glu:
         h = h * dense(p["wg"], x, cfg)
-    return dense(p["wo"], h, cfg)
+    y, partial = comm.down(h, split_in, split_out,
+                           lambda t: dense(p["wo"], t, cfg), ax)
+    return comm.reduce_from(y, ax) if partial else y
 
 
 _GATHER_CHUNK = 8192  # positions a one-hot product of the gather's backward
@@ -153,19 +171,42 @@ class _Gather(torch.autograd.Function):
         return grad, None
 
 
-def embed_apply(p: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and table.requires_grad \
+            and table.device.type != "meta":
+        return _Gather.apply(table, ids)
+    return table[ids]
+
+
+def embed_apply(p: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                shard=None) -> torch.Tensor:
     e = p["tok"]
     if cfg.quant.quantize_embeddings:
         e = maybe_quant(e, cfg.quant.cfg, cfg.quant.mode)
-    rows = (_Gather.apply(e, tokens) if torch.is_grad_enabled()
-            and e.requires_grad else e[tokens])
-    return rows.to(_dtype(cfg.compute_dtype))
+    dt = _dtype(cfg.compute_dtype)
+    if comm.split_at(shard, "tok") is None:
+        return _gather(e, tokens).to(dt)
+    v_l = e.shape[0]
+    ids = tokens.long() - shard.tp.rank * v_l
+    inside = (ids >= 0) & (ids < v_l)
+    rows = _gather(e, ids.clamp(0, v_l - 1)) * inside[..., None]
+    return comm.reduce_from(rows.to(dt), shard.tp)
 
 
-def unembed_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
-    # logits in fp32; a plain matmul, as the reference left it to XLA
-    return (x @ w.to(x.dtype)).float()
+def unembed_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, shard=None,
+                  gather_vocab: bool = True) -> torch.Tensor:
+    """Logits in fp32; on a vocab-split mesh this rank's vocab columns,
+    gathered unless ``gather_vocab`` is False."""
+    if cfg.tie_embeddings:
+        w = p["tok"].T
+        split = None if comm.split_at(shard, "tok") is None else comm.COL
+    else:
+        w, split = p["unembed"], comm.split_at(shard, "unembed")
+    if split is None:
+        # a plain matmul, as the reference left it to XLA
+        return (x @ w.to(x.dtype)).float()
+    logits = (comm.copy_to(x, shard.tp) @ w.to(x.dtype)).float()
+    return comm.gather_from(logits, shard.tp, -1) if gather_vocab else logits
 
 
 # ---------------------------------------------------------------------------

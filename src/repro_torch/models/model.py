@@ -29,18 +29,22 @@ everything.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import params as pp
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (build_embed, build_norm, embed_apply,
                                        norm_apply, unembed_apply)
 from repro_torch.models.params import P
+from repro_torch.parallel import model as sharded
+from repro_torch.parallel.comm import Local
+from repro_torch.parallel.ctx import constrain
 
 
 def _layer(tree, i: int):
@@ -115,7 +119,7 @@ class Model:
     def apply(self, params, batch: Dict[str, torch.Tensor], *, cache=None,
               cache_index=None, last_only: bool = False, last_index=None,
               block_tables=None, attend_cache: bool = False,
-              paged: bool = False, q_lens=None):
+              paged: bool = False, q_lens=None, gather_vocab: bool = True):
         """Forward pass over ``batch["tokens"]`` (B, S), or the encoder's
         ``batch["frames"]`` (B, S, D), with the VLM's optional
         ``batch["patches"]`` (B, P, Dv) as the cross-attention context.
@@ -127,13 +131,46 @@ class Model:
         the batch) or a (B,) tensor (per-slot start positions). ``q_lens``
         ((B,), with ``block_tables``) selects the fused mixed path: row r
         carries ``q_lens[r]`` real tokens.
+
+        On a mesh (``DTensor`` params under active rules) every rank
+        computes on its local shards (:mod:`repro_torch.parallel.model`)
+        and returns its rows of the batch, with every vocab column or,
+        with ``gather_vocab=False``, its vocab shard.
         """
         cfg = self.cfg
+        env = sharded.env_of(params)
+        splits = csplits = None
+        cache_in = cache
+        if env is not None:
+            sharded.check_modes(cfg, block_tables=block_tables,
+                                attend_cache=attend_cache, paged=paged,
+                                q_lens=q_lens)
+            first = batch["frames" if cfg.family == "encoder" else "tokens"]
+            params, splits = sharded.localize(params, env)
+            cache, csplits = sharded.localize_cache(cache, env)
+            batch = sharded.local_batch(batch)
+
+        def shard(*path):
+            """This rank's view of the subtree at ``path`` of the params
+            (and of the cache, where it has one); None unsharded."""
+            if env is None:
+                return None
+            split = functools.reduce(dict.__getitem__, path, splits)
+            csplit = (functools.reduce(dict.__getitem__, path, csplits)
+                      if csplits is not None and path[0] in csplits
+                      else None)
+            return Local(env.tp, split, csplit,
+                         math.prod(ax.size for ax in env.batch))
+
         dt = getattr(torch, cfg.compute_dtype)
         if cfg.family == "encoder":
-            x = batch["frames"].to(dt) @ params["frontend"]["w"].to(dt)
+            w = params["frontend"]["w"]
+            if env is not None:
+                w = sharded.gather_params(w, splits["frontend"]["w"], env.tp)
+            x = batch["frames"].to(dt) @ w.to(dt)
         else:
-            x = embed_apply(params["embed"], batch["tokens"], cfg)
+            x = embed_apply(params["embed"], batch["tokens"], cfg,
+                            shard("embed"))
         ctx = batch.get("patches")
         if ctx is not None:
             ctx = ctx.to(dt)
@@ -146,18 +183,24 @@ class Model:
         else:
             positions = int(cache_index) + ar
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = (constrain(x, ("batch", "seq", "embed")) if env is None
+             else sharded.residual(x, first, env))
 
-        def run(x, lp, lc, keys):
-            """The layers ``keys`` [(key, kind)] of one unit (or the tail)
-            -> (x, their moe_aux summed)."""
+        def run(x, lp, lc, group, keys):
+            """The layers ``keys`` [(key, kind)] of one unit (or the tail,
+            ``group`` "blocks" or "tail") -> (x, their moe_aux summed)."""
             aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
             for key, kind in keys:
+                # an empty block cache ("enc") is a stateless block
+                c = (lc[key] or None) if lc is not None else None
                 x, _, aux = tfm.block_apply(
-                    lp[key], x, cfg, kind, positions=positions, ctx=ctx,
-                    # an empty block cache ("enc") is a stateless block
-                    cache=(lc[key] or None) if lc is not None else None,
+                    lp[key], x if env is None else sharded.enter(x, env),
+                    cfg, kind, positions=positions, ctx=ctx, cache=c,
                     cache_index=cache_index, block_tables=block_tables,
-                    attend_cache=attend_cache, paged=paged, q_lens=q_lens)
+                    attend_cache=attend_cache, paged=paged, q_lens=q_lens,
+                    shard=shard(group, key))
+                if env is not None:
+                    x = sharded.residual(x, first, env)
                 if "moe_aux" in aux:
                     aux_sum = aux_sum + aux["moe_aux"]
             return x, aux_sum
@@ -170,14 +213,16 @@ class Model:
             unit_cache = (_layer(cache["blocks"], i) if cache is not None
                           else None)
             x, aux = unit_fn(x, _layer(params["blocks"], i), unit_cache,
-                             unit_keys)
+                             "blocks", unit_keys)
             aux_total = aux_total + aux
         if self.tail:  # unrolled, outside the unit checkpoint
             x, aux = run(x, params["tail"],
-                         cache["tail"] if cache is not None else None,
+                         cache["tail"] if cache is not None else None, "tail",
                          [(f"tail{j}_{kind}", kind)
                           for j, kind in enumerate(self.tail)])
             aux_total = aux_total + aux
+        if env is not None:
+            x = sharded.enter(x, env)
         if last_index is not None:
             b = x.shape[0]
             idx = torch.as_tensor(last_index, device=x.device).long()
@@ -185,8 +230,9 @@ class Model:
         elif last_only:
             x = x[:, -1:]
         x = norm_apply(params["final_norm"], x, cfg)
-        logits = unembed_apply(params["embed"], x, cfg)
-        return logits, cache, aux_total
+        logits = unembed_apply(params["embed"], x, cfg, shard("embed"),
+                               gather_vocab=gather_vocab)
+        return logits, cache_in, aux_total
 
     # -- loss -----------------------------------------------------------------
 
@@ -194,20 +240,35 @@ class Model:
                                            Dict[str, torch.Tensor]]:
         """Masked next-token cross-entropy (labels < 0 are masked), plus
         the MoE load-balancing aux times ``router_aux_weight``, and the
-        masked accuracy: (total, {"loss", "ce", "aux", "accuracy"})."""
+        masked accuracy: (total, {"loss", "ce", "aux", "accuracy"}).
+
+        On a mesh each rank's rows are summed over the batch axes (every
+        rank returns the global loss), and logits split over the vocab
+        stay split (:func:`repro_torch.parallel.model.split_vocab_ll`)."""
         cfg = self.cfg
-        logits, _, aux = self.apply(params, batch)
-        labels = batch["labels"].long()
+        env = sharded.env_of(params)
+        logits, _, aux = self.apply(params, batch, gather_vocab=False)
+        labels = batch["labels"]
+        if env is not None:
+            labels = sharded.local_batch({"labels": labels})["labels"]
+        labels = labels.long()
         mask = (labels >= 0).float()
         labels = torch.clamp_min(labels, 0)
-        logp = F.log_softmax(logits, dim=-1)
-        ll = torch.gather(logp, -1, labels[..., None])[..., 0]
-        denom = torch.clamp_min(mask.sum(), 1.0)
-        ce = -(ll * mask).sum() / denom
+        if logits.shape[-1] == cfg.padded_vocab:  # every vocab column here
+            logp = F.log_softmax(logits, dim=-1)
+            ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+            right = torch.argmax(logits, -1) == labels
+        else:
+            ll, right = sharded.split_vocab_ll(logits, labels, env.tp)
+        denom = torch.clamp_min(sharded.sum_batch(mask.sum(), env), 1.0)
+        ce = -sharded.sum_batch((ll * mask).sum(), env) / denom
+        if env is not None:  # the mean of the batch ranks' aux
+            aux = sharded.sum_batch(aux, env) / math.prod(
+                ax.size for ax in env.batch)
         total = ce
         if cfg.moe is not None:
             total = total + cfg.moe.router_aux_weight * aux
-        acc = ((torch.argmax(logits, -1) == labels) * mask).sum() / denom
+        acc = sharded.sum_batch((right * mask).sum(), env) / denom
         return total, {"loss": total, "ce": ce, "aux": aux, "accuracy": acc}
 
     # -- serving ------------------------------------------------------------
@@ -273,6 +334,35 @@ class Model:
             block_tables=block_tables, paged=paged,
             q_lens=_ints(q_lens, batch))
         return logits, cache
+
+
+    # -- dry-run input specs ------------------------------------------------
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """Stand-ins for every model input, as tensors on the ``meta``
+        device (no allocation), with the reference's shapes and dtypes."""
+        cfg = self.cfg
+        b = shape.global_batch
+        s = shape.seq_len
+        dt = getattr(torch, cfg.compute_dtype)
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind not in ("train", "prefill", "decode"):
+            raise ValueError(shape.kind)
+        if shape.kind == "decode":
+            specs = {"tokens": meta((b, 1), torch.int32)}
+        elif cfg.family == "encoder":
+            specs = {"frames": meta((b, s, cfg.d_model), dt)}
+        else:
+            specs = {"tokens": meta((b, s), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = meta((b, s), torch.int32)
+        if cfg.family == "vlm":
+            specs["patches"] = meta((b, cfg.vlm.n_patches, cfg.vlm.vision_dim),
+                                    dt)
+        return specs
 
 
 def _ints(a, batch) -> torch.Tensor:

@@ -81,6 +81,16 @@ def init_params(tree, generator: Optional[torch.Generator] = None,
     return tree_map(make, tree)
 
 
+def abstract_params(tree, dtype=torch.float32):
+    """Shape and dtype stand-ins for a placeholder tree, as tensors on the
+    ``meta`` device (no allocation): the dry-run's state."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype or dtype,
+                                          device="meta"), tree)
+
+
+map_placeholders = tree_map
+
+
 def count_params(tree) -> int:
     """Number of weights a placeholder tree describes (no allocation)."""
     total = 0

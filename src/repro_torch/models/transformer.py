@@ -11,7 +11,10 @@ remainder layers unrolled as a tail (``models.model``). Kinds:
   self_cross  self-attn + gated cross-attn + MLP          (llama-3.2-vision)
 
 so every family of the reference is served (the encoder only through
-``Model.apply``: it has no decoder)."""
+``Model.apply``: it has no decoder). On a mesh (``shard``) the attention
+kinds, the MLP and the MoE FFN compute on local shards; the recurrent
+kinds (``rec``, ``mamba``) gather their weights and state and run whole on
+every rank of the model axis."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -25,6 +28,8 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import build_mlp, build_norm, mlp_apply, norm_apply
 from repro_torch.models.params import P
+from repro_torch.parallel import model as sharded
+from repro_torch.parallel.ctx import constrain
 
 
 def pattern_for(cfg: ArchConfig) -> Tuple[str, ...]:
@@ -98,7 +103,7 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 cache: Optional[dict] = None,
                 cache_index=None, block_tables: Optional[torch.Tensor] = None,
                 attend_cache: bool = False, paged: bool = False,
-                q_lens: Optional[torch.Tensor] = None):
+                q_lens: Optional[torch.Tensor] = None, shard=None):
     """Returns (x, cache, aux): ``aux`` holds ``moe_aux`` for a moe block,
     and is empty otherwise. A cached block updates ``cache`` in place.
 
@@ -107,32 +112,46 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
     xattn(lnx(x), ctx)`` only when ``ctx`` (the patch embeddings) is
     given: launches without it skip cross-attention, as the reference's
     decode, mixed, draft and verify launches do."""
+    if shard is not None and kind in ("rec", "mamba"):
+        full = sharded.gather_cache(cache, shard) if cache else None
+        x, full, aux = block_apply(
+            sharded.gather_params(p, shard.split, shard.tp), x, cfg, kind,
+            positions=positions, cache=full, cache_index=cache_index)
+        if cache:
+            sharded.scatter_cache(cache, full, shard)
+        return x, cache, aux
     if kind == "mamba":
         h, cache = ssm_mod.mamba_apply(p["mixer"], norm_apply(p["ln"], x, cfg),
                                        cfg, cache)
-        return x + h, cache, {}
+        return constrain(x + h, ("batch", "seq", "embed")), cache, {}
     if kind == "rec":
         h, cache = rglru_mod.rglru_apply(p["rec"], norm_apply(p["ln1"], x, cfg),
                                          cfg, cache)
         x = x + h
         x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg)
-        return x, cache, {}
+        return constrain(x, ("batch", "seq", "embed")), cache, {}
+    def sub(key):
+        return None if shard is None else shard[key]
+
     window = cfg.griffin.window if kind == "attn_local" else None
     h, cache = attn_mod.attention_apply(
         p["attn"], norm_apply(p["ln1"], x, cfg), cfg, positions=positions,
         causal=cfg.causal and kind != "enc", window=window, cache=cache,
         cache_index=cache_index, block_tables=block_tables,
-        attend_cache=attend_cache, paged=paged, q_lens=q_lens)
+        attend_cache=attend_cache, paged=paged, q_lens=q_lens,
+        shard=sub("attn"))
     x = x + h
     if kind == "self_cross" and ctx is not None:
         hx, _ = attn_mod.attention_apply(
             p["xattn"], norm_apply(p["lnx"], x, cfg), cfg,
-            positions=positions, causal=False, ctx=ctx)
+            positions=positions, causal=False, ctx=ctx, shard=sub("xattn"))
         x = x + torch.tanh(p["xgate"]).to(x.dtype) * hx
     aux = {}
     if kind == "moe":
-        h, aux = moe_mod.moe_apply(p["moe"], norm_apply(p["ln2"], x, cfg), cfg)
+        h, aux = moe_mod.moe_apply(p["moe"], norm_apply(p["ln2"], x, cfg),
+                                   cfg, sub("moe"))
         x = x + h
     else:
-        x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg)
-    return x, cache, aux
+        x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg,
+                          sub("mlp"))
+    return constrain(x, ("batch", "seq", "embed")), cache, aux

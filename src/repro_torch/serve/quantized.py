@@ -180,6 +180,48 @@ def init_packed_params(tree, qcfg: QuantConfig, generator, *,
                   "compression": dense_bits / max(packed_bits, 1)}
 
 
+def pack_placeholders(tree, qcfg: QuantConfig):
+    """Placeholder-tree version of :func:`pack_tree` (dry-run: shapes +
+    logical axes only, no data). Eligible P leaves become dicts of P leaves
+    with the packed shapes and the reference's axes; sharding rules apply
+    to them like any other. The planes are int32 where the reference's are
+    uint32: the port has carried its 32-bit plane words as int32 since its
+    first slice (same bytes, the kernel's type)."""
+    n_eff = int(np.ceil(qcfg.n_shifts))
+    m = qcfg.group_size
+    P = pp.P
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            return {k: walk(path + (k,), v) for k, v in node.items()}
+        p = node
+        if not pp.is_placeholder(p) or not _eligible(path, p):
+            return p
+        lead = p.shape[:-2]
+        lead_axes = p.axes[:-2]
+        k, c = p.shape[-2], p.shape[-1]
+        ak, ac = p.axes[-2], p.axes[-1]
+        if k % m:
+            return p
+        return {
+            "sign_plane": P(lead + (k // 32, c), lead_axes + (ak, ac),
+                            init="zeros", dtype=torch.int32),
+            "mask_planes": P(lead + (n_eff, k // 32, c),
+                             lead_axes + (None, ak, ac),
+                             init="zeros", dtype=torch.int32),
+            # nibble-packed shift values (SWIS-C: one offset byte/group)
+            "shifts": P(lead + (k // m, c,
+                                1 if qcfg.method == "swis_c"
+                                else (n_eff + 1) // 2),
+                        lead_axes + (ak, ac, None),
+                        init="zeros", dtype=torch.uint8),
+            "scale": P(lead + (1, c), lead_axes + (None, ac),
+                       init="ones", dtype=torch.float32),
+        }
+
+    return walk((), tree)
+
+
 def total_slices(tree) -> int:
     """Number of SWIS bit-slices (mask planes) in a packed tree, from the
     first packed leaf; 0 when the tree holds no packed leaves."""

@@ -763,3 +763,26 @@ def test_quantize_and_pack_on_card_equal_cpu(cuda_device):  # noqa: F811
     want = quantized.pack_tree({"wi": stack}, cfg)[0]["wi"]
     for k in want:
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_one_rank_nccl_trainer_on_card(cuda_device, tmp_path):  # noqa: F811
+    """A one-rank NCCL group and a (1, 1) mesh on the card: the sharded
+    trainer's losses are the unsharded trainer's."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs as C
+    from repro_torch.train.loop import Trainer
+
+    cfg = C.get_smoke("phi3-mini-3.8b")
+    kw = dict(seq_len=32, global_batch=8, total_steps=3, warmup=1)
+    want = Trainer(cfg, **kw).run(3)["losses"]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'r'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        got = Trainer(cfg, mesh=mesh, **kw).run(3)["losses"]
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(got, want, rtol=1e-6)

@@ -35,8 +35,8 @@ def test_importing_the_port_loads_no_jax():
     assert len(got["modules"]) >= 20, got["modules"]
     # the observability modules, the launchers, the examples, the MoE
     # family, the recurrent families, the VLM, the encoder, every config,
-    # the training path, the offline toolchain and the perf model are
-    # walked
+    # the training path, the offline toolchain, the perf model, and the
+    # sharding rules and the dry-run are walked
     for name in ("core.budget", "core.scheduling", "core.probability",
                  "perfmodel.networks", "perfmodel.systolic",
                  "perfmodel.evaluate", "core.qat", "optim.adamw", "optim.clip", "optim.schedule",
@@ -51,7 +51,10 @@ def test_importing_the_port_loads_no_jax():
                  "configs.recurrentgemma_2b", "configs.mamba2_2_7b",
                  "models.attention", "models.transformer", "models.model",
                  "configs.llama_3_2_vision_11b", "configs.hubert_xlarge",
-                 "configs.mistral_large_123b"):
+                 "configs.mistral_large_123b", "parallel.ctx",
+                 "parallel.sharding", "parallel.comm", "parallel.model",
+                 "parallel.quant", "launch.mesh", "launch.dryrun",
+                 "launch.roofline", "launch.hillclimb", "launch.report"):
         assert f"repro_torch.{name}" in got["modules"], name
     assert got["bad"] == [], f"port imported {got['bad']}"
 

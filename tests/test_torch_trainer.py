@@ -1,7 +1,8 @@
 """The port's training loop and the step's remat modes: loss falls,
 restart is bit-exact (the reference's ``tests/test_substrates.py``),
-failure injection, the straggler counter, ``mesh`` refused, unit
-checkpointing recomputes the same gradients, and the port's ``Trainer``
+failure injection, the straggler counter, a mesh on another device
+refused, unit checkpointing recomputes the same gradients, and the port's
+``Trainer``
 follows the reference's over a few steps (losses within rtol 2e-4)."""
 import dataclasses
 import os
@@ -85,8 +86,13 @@ def test_straggler_deadline_counter():
 
 
 def test_trainer_needs_a_card_or_cpu_and_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        Trainer(_smoke(False), mesh=object(), device="cpu")
+    """A mesh of another device type than the trainer's is refused."""
+
+    class CudaMesh:
+        device_type = "cuda"
+
+    with pytest.raises(ValueError, match="mesh on cuda"):
+        Trainer(_smoke(False), mesh=CudaMesh(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(_smoke(False))
