@@ -179,16 +179,34 @@ Phases, each fatal on failure (exit code 1, and no result line):
    16 a rank: 7 SWIS launches a layer, 280, 3 of them expert-axis), but
    the timing. Every number of (c) is one rank of 256 with the
    collectives not executed; no value of it is compared or reported.
+13. the SWIS paper's tables at the reference's settings, once phase 12's
+   tensors are freed (``repro_torch.benchmarks.paper_tables``): (a)
+   smollm's smoke config trained 400 steps on the card (float32, seq 64,
+   batch 16) and all 11 tables on the card (Table 5 with 150 QAT steps),
+   each table's rows and seconds printed: next-token accuracy on the
+   synthetic stream, Table 4 the paper's 28 nm model; only
+   ``kernel_bench`` launches a kernel (SWIS, its CUDA rows held against
+   the plain version before they are timed), and Table 5 leaves the
+   trained params unchanged; (b) the host-only tables, Table 1 and Fig.
+   6's RMSE rows equal on the card and the CPU, and Table 2's offline
+   scheduler rows of the card's trained ``wi`` equal to the CPU's on the
+   same weights; (c) Table 3's swis_ss/N4, swis_ss/N2 and wgt_trunc/N2
+   accuracies of the card's trained params evaluated again on the CPU
+   plain path, within the CPU tests' tie tolerance (as are Fig. 6's); (d)
+   the SWIS kernel at ``kernel_bench``'s two shapes held against its
+   plain version and timed beside its bound, the plain version and
+   ``torch.matmul``.
 
 The CPU checks of phases 4-11 run inside ``plain_weights_once``: the plain
 SWIS version expands each CPU weight once, not once a model call.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (each
-kernel's launches summed over the paths of phases 4 to 12, and by path; the
+kernel's launches summed over the paths of phases 4 to 13, and by path; the
 SWIS row also carries the expert-axis launch's own numbers, phase 8's
-layers, phase 9's shapes, phase 11's 3-plane layer and phase 12's
-rank-local mistral-large-123b layer, the paged row the qwen2-moe and VLM
-decode launches); the last is ``{"ok": true, "device": {...}}``.
+layers, phase 9's shapes, phase 11's 3-plane layer, phase 12's
+rank-local mistral-large-123b layer and phase 13's ``kernel_bench``
+shapes, the paged row the qwen2-moe and VLM decode launches); the last is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3378,6 +3396,173 @@ def parallel_phase(dev, card, kernels):
     return counts, layer, secs
 
 
+# -- phase 13: the paper tables ------------------------------------------------
+
+HOST_TABLES = ("fig2_lossless_probability", "fig5_compression", "fig3_pe",
+               "fig1_dram_ratio", "table4_performance")
+# (c)'s rows: Table 3's policy of each, evaluated again on the CPU
+PAPER_ACC_ROWS = {"table3/swis_ss/N4": ("swis", 4), "table3/swis_ss/N2":
+                  ("swis", 2), "table3/wgt_trunc/N2": ("trunc", 2)}
+# tests/test_torch_paper_tables.py's ACC_TOL: a near tie's argmax may flip
+# between two float orders of the same weights, 1/1024 of a batch's
+# accuracy each
+PAPER_ACC_TOL = 2 / 1024
+# the SWIS launches kernel_bench makes a shape: its hold against the plain
+# version, then time_us's 1 warm-up and 3 timed calls
+KERNEL_BENCH_LAUNCHES = 1 + 1 + 3
+
+
+def paper_tables_phase(dev, card, kernels):
+    """The paper tables on the card at the reference's settings
+    (``repro_torch.benchmarks.paper_tables``): (a) smollm's smoke config
+    trained 400 steps on the card (float32, seq 64, batch 16), then every
+    table in ``ALL`` on the card, Table 5 with 150 QAT steps, each table's
+    rows and seconds printed; Tables 3, 2, 5 and Fig. 6 launch no kernel
+    (fake-quant is dense), ``kernel_bench`` launches only SWIS, and Table 5
+    leaves the trained params unchanged; (b) the same functions on the
+    CPU: the host-only tables' and Table 1's rows equal, Fig. 6's RMSE rows
+    equal (its accuracies within ``PAPER_ACC_TOL``), Table 2's offline rows
+    of the card's trained ``wi`` equal to the CPU's on the same weights;
+    (c) Table 3's ``PAPER_ACC_ROWS`` evaluated again on the CPU plain path
+    from the card's trained params, within ``PAPER_ACC_TOL``; (d) the SWIS
+    kernel at ``kernel_bench``'s two shapes held against its plain version
+    (rtol 1e-5 of max|ref|) and timed (CUDA events) beside its bound, the
+    plain version and ``torch.matmul`` on the dense weight. Returns
+    (launches by path, (d)'s numbers by shape, seconds by part)."""
+    import torch
+    from repro_torch.benchmarks import common, paper_tables as pt
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import params as pp
+
+    secs = {}
+    t0 = time.perf_counter()
+    cfg, params, _ = common.trained_smoke_model(device=dev)
+    torch.cuda.synchronize()
+    secs["13 (a) training"] = time.perf_counter() - t0
+    trained = pp.tree_map(torch.clone, params)
+    card_rows, by_table = {}, {}
+    for kern in kernels:  # count only the tables' launches
+        kern.launches = 0
+    for fn in pt.ALL:
+        before = {kern.name: kern.launches for kern in kernels}
+        t1 = time.perf_counter()
+        rows = fn(device=dev)
+        secs[f"13 (a) {fn.__name__}"] = time.perf_counter() - t1
+        by_table[fn.__name__] = {kern.name: kern.launches - before[kern.name]
+                                 for kern in kernels}
+        card_rows[fn.__name__] = rows
+        for name, us, derived in rows:
+            print(f"phase 13 (a) row: {name},{us:.1f},{derived}")
+        print(f"phase 13 (a) {fn.__name__} on {card}: {len(rows)} rows in "
+              f"{secs[f'13 (a) {fn.__name__}']:.1f} s, launches "
+              f"{by_table[fn.__name__]}")
+    counts = {kern.name: kern.launches for kern in kernels}
+    want = {"swis_matmul": KERNEL_BENCH_LAUNCHES * len(pt.KERNEL_SHAPES),
+            "paged_attention": 0}
+    check(counts == want and by_table["kernel_bench"] == want,
+          f"phase 13 (a): launches {counts} (by table {by_table}) != {want}")
+    cuda_rows = [r[0] for r in card_rows["kernel_bench"]
+                 if r[0].startswith("kernel/swis_matmul_cuda/")]
+    check(len(cuda_rows) == len(pt.KERNEL_SHAPES),
+          f"phase 13 (a): kernel rows {cuda_rows}")
+    changed = []
+    _zip(lambda a, b: changed.append(not torch.equal(a, b)), trained, params)
+    check(not any(changed), "phase 13 (a): the tables changed the trained "
+          "params")
+    acc = {r[0]: float(r[2]) for fn in ("table3_ptq", "table2_scheduling",
+                                         "table5_retraining", "fig6_groupsize")
+           for r in card_rows[fn] if "/offline/" not in r[0]
+           and "/rmse/" not in r[0]}
+    check(all(0.0 <= a <= 1.0 for a in acc.values()),
+          f"phase 13 (a): accuracies outside [0, 1]: {acc}")
+    print(f"phase 13 (a) key rows on {card} (next-token accuracy on the "
+          f"synthetic stream): " + "; ".join(
+              f"N{n} swis_ss {acc[f'table3/swis_ss/N{n}']:.4f} vs wgt_trunc "
+              f"{acc[f'table3/wgt_trunc/N{n}']:.4f}" for n in (2, 3, 4))
+          + f"; N2 ptq {acc['table5/ptq_swis/N2']:.4f} qat "
+          f"{acc['table5/qat_swis/N2']:.4f} ptq_trunc "
+          f"{acc['table5/ptq_trunc/N2']:.4f}; table2 N2/N3 sched_single "
+          f"{acc['table2/sched_single/N2']:.4f}/"
+          f"{acc['table2/sched_single/N3']:.4f} vs none "
+          f"{acc['table2/none/N2']:.4f}/{acc['table2/none/N3']:.4f}")
+
+    # (b) the same functions on the port's CPU path
+    t0 = time.perf_counter()
+    for name in HOST_TABLES + ("table1_rmse",):
+        got = [(r[0], r[2]) for r in card_rows[name]]
+        want_rows = [(r[0], r[2]) for r in getattr(pt, name)(device="cpu")]
+        check(got == want_rows, f"phase 13 (b): {name} differs on the card: "
+              f"{sorted(set(got) ^ set(want_rows))[:6]}")
+    params_cpu = pp.tree_map(lambda a: a.cpu(), params)
+    model_cpu = (cfg, params_cpu, common.eval_fn(cfg, params_cpu,
+                                                 device="cpu"))
+    fig6_cpu = pt.fig6_groupsize(device="cpu", model=model_cpu)
+    check([r[0] for r in fig6_cpu] == [r[0] for r in card_rows[
+        "fig6_groupsize"]], "phase 13 (b): fig6 rows differ")
+    for (name, _, got), (_, _, cpu) in zip(card_rows["fig6_groupsize"],
+                                           fig6_cpu):
+        check(got == cpu if "/rmse/" in name
+              else abs(float(got) - float(cpu)) <= PAPER_ACC_TOL,
+              f"phase 13 (b): {name} {got} on the card, {cpu} on the CPU")
+    offline = [r for r in card_rows["table2_scheduling"] if "/offline/" in r[0]]
+    offline_cpu = pt.offline_schedule_rows(
+        params_cpu["blocks"]["sub0_attn"]["mlp"]["wi"]["w"][0])
+    check([(r[0], r[2]) for r in offline] == [(r[0], r[2])
+                                              for r in offline_cpu],
+          f"phase 13 (b): Table 2's offline rows {offline} on the card, "
+          f"{offline_cpu} on the CPU")
+    print(f"phase 13 (b): {', '.join(HOST_TABLES)} and table1_rmse equal "
+          f"on the card and the CPU; fig6 rmse rows equal, its accuracies "
+          f"within {PAPER_ACC_TOL:.6f}; Table 2's offline rows equal: "
+          + ", ".join(f"{r[0]} {r[2]}" for r in offline))
+    secs["13 (b)"] = time.perf_counter() - t0
+
+    # (c) accuracy on the card against the CPU plain path
+    t0 = time.perf_counter()
+    card_acc = {r[0]: r[2] for r in card_rows["table3_ptq"]}
+    line = []
+    for name, (method, n) in PAPER_ACC_ROWS.items():
+        cpu = model_cpu[2](cfg.replace(quant=common.quant_policy(method, n)))
+        line.append(f"{name} card {card_acc[name]} CPU {cpu:.4f}")
+        check(abs(float(card_acc[name]) - cpu) <= PAPER_ACC_TOL,
+              f"phase 13 (c): {line[-1]}")
+    print(f"phase 13 (c): within {PAPER_ACC_TOL:.6f}: " + "; ".join(line))
+    secs["13 (c)"] = time.perf_counter() - t0
+    del params_cpu, model_cpu
+
+    # (d) the kernel rows' shapes: held, then timed
+    t0 = time.perf_counter()
+    perf = {}
+    for (mm, kk, nn, g, ns), x, _, pw in pt.kernel_cases(dev):
+        got, want_y = ops.swis_matmul(x, pw), pt.plain_swis_matmul(x, pw)
+        top = want_y.abs().max().item()
+        err = (got - want_y).abs().max().item()
+        label = f"{mm}x{kk}x{nn}/g{g}N{ns}"
+        check(torch.allclose(got, want_y, rtol=1e-5, atol=1e-5 * top),
+              f"phase 13 (d) {label}: max|err| {err:.3g} vs max|ref| "
+              f"{top:.3g}")
+        w = ref.dequant_ref(pw.sign_plane, pw.mask_planes, pw.shifts,
+                            pw.scale.reshape(-1).expand(nn), group=g)
+        nbytes = (x.numel() * 4 + pw.sign_plane.numel() * 4
+                  + pw.mask_planes.numel() * 4 + pw.shifts.numel()
+                  + nn * 4 + mm * nn * 4)
+        b, by = bound(nbytes, 2 * mm * kk * nn)
+        perf[label] = {
+            "ms": event_ms(lambda: ops.swis_matmul(x, pw)),
+            "plain_ms": cuda_ms(lambda: pt.plain_swis_matmul(x, pw),
+                                iters=20),
+            "library_ms": event_ms(lambda: torch.matmul(x, w)),
+            "bound_ms": b, "bound_by": by, "max_abs_err": err}
+        p = perf[label]
+        print(f"phase 13 (d) kernel_bench shape M={mm} K={kk} N={nn} group "
+              f"{g} n_shifts {ns} on {card}: kernel {p['ms']:.5f} ms (CUDA "
+              f"events), torch.matmul {p['library_ms']:.5f} ms, plain "
+              f"{p['plain_ms']:.4f} ms, bound {b:.6f} ms ({by}); max|err| "
+              f"{err:.3g}")
+    secs["13 (d)"] = time.perf_counter() - t0
+    return {"13 kernel_bench": counts}, perf, secs
+
+
 def main() -> int:
     try:
         import torch
@@ -3548,6 +3733,20 @@ def main() -> int:
         elapsed["12"] = time.perf_counter() - t0
         print(f"[phase 12 done: {elapsed['12']:.1f} s: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in secs12.items()) + "]")
+
+        # 13. the paper tables, once phase 12's tensors are freed
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        table_paths, bench_shapes, secs13 = paper_tables_phase(dev, card,
+                                                               kernels)
+        by_path.update(table_paths)
+        perf["swis_matmul"]["max_abs_err"] = max(
+            [perf["swis_matmul"]["max_abs_err"]]
+            + [p["max_abs_err"] for p in bench_shapes.values()])
+        elapsed["13"] = time.perf_counter() - t0
+        print(f"[phase 13 done: {elapsed['13']:.1f} s: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in secs13.items()) + "]")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3601,6 +3800,11 @@ def main() -> int:
                   f"(16, 16) mesh {RANK0_GEMMS} at M=8, fp32 x, by CUDA "
                   f"events behind a spin kernel; library: torch.matmul on "
                   f"the dense fp32 weight ({RANK0_LABEL})")}
+    rows[0]["paper_kernel_bench"] = {
+        **{label: {k: p[k] for k in keys} for label, p in bench_shapes.items()},
+        "timed": ("kernel_bench's two shapes (MxKxN/group, n_shifts), fp32 "
+                  "x; kernel and torch.matmul on the dense fp32 weight by "
+                  "CUDA events behind a spin kernel, plain by cuda_ms")}
     rows[1]["vlm_decode"] = {
         **{k: paged_vlm[k] for k in keys},
         "timed": (f"one {VLM_ARCH} decode launch (B 4, 32 heads over 8 of "

@@ -19,7 +19,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import packing
 from repro_torch.core.swis import QuantConfig, fake_quant, quantize, rmse
-from repro_torch.examples.common import quant_policy, trained_smoke_model
+from repro_torch.benchmarks.common import quant_policy, trained_smoke_model
 from repro_torch.kernels import ops
 
 

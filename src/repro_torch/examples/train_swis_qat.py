@@ -15,7 +15,7 @@ import argparse
 from repro_torch import configs as C
 from repro_torch.configs.base import QuantPolicy
 from repro_torch.core.swis import QuantConfig
-from repro_torch.examples.common import quant_policy, trained_smoke_model
+from repro_torch.benchmarks.common import quant_policy, trained_smoke_model
 from repro_torch.train.loop import Trainer
 
 

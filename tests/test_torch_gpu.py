@@ -786,3 +786,22 @@ def test_one_rank_nccl_trainer_on_card(cuda_device, tmp_path):  # noqa: F811
     finally:
         dist.destroy_process_group()
     np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_paper_tables_on_card(cuda_device):  # noqa: F811
+    """``table1_rmse`` gives the CPU's rows on the card (fake-quant at
+    integer shift counts is bit-exact there), and ``kernel_bench`` prints a
+    kernel row for each shape, its product held against the plain version
+    (rtol 1e-5 of max|ref|)."""
+    from repro_torch.benchmarks import paper_tables as pt
+
+    rows = {dev: [(r[0], r[2]) for r in pt.table1_rmse(device=dev)]
+            for dev in (cuda_device, "cpu")}
+    assert rows[cuda_device] == rows["cpu"]
+    before = sm.KERNEL.launches
+    names = [r[0] for r in pt.kernel_bench(device=cuda_device)]
+    assert sm.KERNEL.launches > before
+    for mm, kk, nn, g, ns in pt.KERNEL_SHAPES:
+        assert f"kernel/swis_matmul_cuda/{mm}x{kk}x{nn}/g{g}N{ns}" in names
+    for _, x, _, pw in pt.kernel_cases(cuda_device):
+        _close(ops.swis_matmul(x, pw), pt.plain_swis_matmul(x, pw), 1e-5)

@@ -1,5 +1,7 @@
 """The port stands alone: ``repro_torch`` (every module) and
-``chip_smoke.py`` import neither JAX nor the JAX reference package."""
+``chip_smoke.py`` import neither JAX nor the JAX reference package, nor
+the reference's root ``benchmarks`` and ``examples`` packages (a bare
+``benchmarks`` import inside the port would find the reference's)."""
 import json
 import re
 import subprocess
@@ -20,7 +22,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if k.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks",
+                                    "examples"))
 print(json.dumps({{"modules": names, "bad": bad}}))
 """
 
@@ -36,13 +39,14 @@ def test_importing_the_port_loads_no_jax():
     # the observability modules, the launchers, the examples, the MoE
     # family, the recurrent families, the VLM, the encoder, every config,
     # the training path, the offline toolchain, the perf model, and the
-    # sharding rules and the dry-run are walked
+    # sharding rules, the dry-run and the paper tables are walked
     for name in ("core.budget", "core.scheduling", "core.probability",
                  "perfmodel.networks", "perfmodel.systolic",
                  "perfmodel.evaluate", "core.qat", "optim.adamw", "optim.clip", "optim.schedule",
                  "optim.compress", "data.pipeline", "checkpoint.manager",
                  "train.steps", "train.loop", "launch.train",
-                 "examples.common", "examples.train_swis_qat",
+                 "benchmarks.common", "benchmarks.paper_tables",
+                 "benchmarks.run", "examples.train_swis_qat",
                  "examples.quickstart",
                  "serve.metrics", "serve.trace", "serve.costmodel",
                  "perfmodel.pe", "launch.serve", "examples.serve_swis",
@@ -60,8 +64,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_sources_name_no_jax_or_reference_import():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
-                         re.MULTILINE)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|benchmarks|"
+                         r"examples)(\.|\s|$)", re.MULTILINE)
     assert len(PORT_SOURCES) >= 20
     for path in PORT_SOURCES:
         hits = pattern.findall(path.read_text())
