@@ -221,6 +221,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
+FP16_TC_FLOPS_PER_S = 989e12  # H100 SXM fp16 tensor-core peak, dense
 N_SHIFTS, GROUP = 4, 4
 DRAFT_SLICES = 2  # planes the speculative draft keeps (path c)
 PATHS_LAYERS = 10  # phase 5's depth: the first 10 of smollm-135m's 30 layers
@@ -345,9 +346,11 @@ def plain_weights_once():
         memo.clear()
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
+    """The least ms for ``nbytes`` over the memory rate and ``flops`` over
+    the peak of the pipe that does them, and which of the two bounds."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1413,6 +1416,17 @@ MOE_ARCH = "qwen2-moe-a2.7b"
 # check compares it with)
 MOE_LAYERS = 9
 MOE_PER_LAYER = 10  # SWIS launches a layer: q/k/v/o, 3 shared, 3 expert stacks
+# the expert-axis launch's kernel (csrc/swis_matmul.cu, namespace xk)
+EXPERT_DESIGN = ("swis_experts_kernel: weights rebuilt by prmt/lop3 as exact fp16 "
+                 "subnormals, mma.sync m16n8k16 against x split into two fp16 "
+                 "terms, a cp.async ring of 256-k stages, 64-column tiles")
+
+
+def expert_bound(nbytes, macs):
+    """:func:`bound` of the expert kernel, whose products run on the tensor
+    cores in fp16 with x split into two terms: 2 x 2 x ``macs`` flops at the
+    fp16 tensor-core rate."""
+    return bound(nbytes, 4 * macs, FP16_TC_FLOPS_PER_S)
 
 
 def tree_bytes(tree):
@@ -1489,7 +1503,8 @@ def expert_phase(dev, card, params, cfg):
     yardstick: the port never calls it), by CUDA events with the launches
     queued behind a spin kernel and, for comparison, from a profiler
     trace; and the layer's 7 other SWIS GEMMs, to hold the layer's sum
-    against the in-engine breakdown of (c)."""
+    against the in-engine breakdown of (c). The capacity stack is timed the
+    same way beside ``torch.bmm``."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models.layers import packed_weight as packed_weight_of
@@ -1511,6 +1526,7 @@ def expert_phase(dev, card, params, cfg):
     err = 0.0
     ms = plain_ms = lib_ms = bound_ms = 0.0
     per, profiled = [], []
+    capacity = {}
     for label, name, x in cases:
         leaf = {k: v[0] for k, v in moe[name].items()}  # layer 0's stack
         xe = x if x.ndim == 3 else x[None].expand(e, *x.shape)
@@ -1525,9 +1541,23 @@ def expert_phase(dev, card, params, cfg):
         check(torch.allclose(got, want, rtol=1e-5, atol=1e-5 * top),
               f"expert launch {label}: max|err|={e_max:.3g} vs "
               f"max|ref|={top:.3g}")
-        if not label.startswith("decode"):
-            continue
         w = dequant_leaf(leaf)  # the dense float32 stack
+        m, k = xe.shape[1:]
+        n = leaf["sign_plane"].shape[-1]
+        nbytes = (x.numel() * 4 + tree_bytes(leaf) + e * m * n * 4)
+        if not label.startswith("decode"):
+            cb, cby = expert_bound(nbytes, e * m * k * n)
+            capacity = {
+                "ms": event_ms(lambda: ops.swis_matmul_experts(x, leaf)),
+                "library_ms": event_ms(lambda: torch.bmm(xe, w)),
+                "plain_ms": cuda_ms(lambda: ref.swis_matmul_experts_ref(
+                    xe, leaf["sign_plane"], leaf["mask_planes"],
+                    leaf["shifts"], leaf["scale"], group=GROUP), iters=3,
+                    warmup=1),
+                "bound_ms": cb, "bound_by": cby, "max_abs_err": e_max,
+                "rows": m}
+            del w
+            continue
         profiled.append((cuda_ms(lambda: ops.swis_matmul_experts(x, leaf),
                                  iters=50),
                          cuda_ms(lambda: torch.bmm(xe, w), iters=50)))
@@ -1537,10 +1567,7 @@ def expert_phase(dev, card, params, cfg):
         plain_ms += cuda_ms(lambda: ref.swis_matmul_experts_ref(
             xe, leaf["sign_plane"], leaf["mask_planes"], leaf["shifts"],
             leaf["scale"], group=GROUP), iters=3, warmup=1)
-        m, k = xe.shape[1:]
-        n = leaf["sign_plane"].shape[-1]
-        nbytes = (x.numel() * 4 + tree_bytes(leaf) + e * m * n * 4)
-        b, by = bound(nbytes, 2 * e * m * k * n)
+        b, by = expert_bound(nbytes, e * m * k * n)
         ms += t
         lib_ms += t_lib
         bound_ms += b
@@ -1549,11 +1576,16 @@ def expert_phase(dev, card, params, cfg):
           f"0's stacks (E {e}): decode wi/wg (M 4, shared rows), wo (M 4, "
           f"rows per expert), capacity wi (M {cap}, rows per expert); "
           f"max|err| {err:.3g} (rtol 1e-5, atol 1e-5*max|ref|)")
-    print(f"expert launch, one decode layer's 3 stacks on {card} (CUDA "
-          f"events, launches queued behind a spin kernel): kernel "
-          f"{ms:.4f} ms, torch.bmm over the dequantized float32 stack "
+    print(f"expert launch ({EXPERT_DESIGN}), one decode layer's 3 stacks on "
+          f"{card} (CUDA events, launches queued behind a spin kernel): "
+          f"kernel {ms:.4f} ms, torch.bmm over the dequantized float32 stack "
           f"{lib_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
           f"({by}); per stack kernel/bmm/bound us: " + ", ".join(per))
+    print(f"expert launch, the capacity stack wi (E {e}, M {capacity['rows']}"
+          f", rows per expert) on {card} (CUDA events behind a spin kernel): "
+          f"kernel {capacity['ms']:.4f} ms, torch.bmm {capacity['library_ms']:.4f}"
+          f" ms, plain {capacity['plain_ms']:.4f} ms, bound "
+          f"{capacity['bound_ms']:.5f} ms ({capacity['bound_by']})")
     # the same launches summed from a profiler trace, the card's copy rate
     # over the bytes of one stack, and the layer's other 7 SWIS GEMMs (the
     # attention's 4, the shared experts' 3) at M = 4
@@ -1594,7 +1626,7 @@ def expert_phase(dev, card, params, cfg):
           f"({pg['bound_by']}); max|err| {pg['max_abs_err']:.3g} (1e-5)")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
-            "paged_decode": pg}
+            "capacity": capacity, "paged_decode": pg}
 
 
 def moe_counts(label, engine, kernels, cfg, experts0):
@@ -3121,17 +3153,21 @@ def _hold_rank0_gemms(block, cfg, dev, m=8):
     weight to x's dtype, the kernel scales after its K loop). 2-D weights
     go through ``ops.swis_matmul``, expert stacks through
     ``ops.swis_matmul_experts``: ``wi`` and ``wg`` on rows that every
-    expert shares, ``wo`` on each expert's own rows. Returns
-    ([(name, local shape)], max|err| in float32, in the compute dtype)."""
+    expert shares, ``wo`` on each expert's own rows. Each expert stack is
+    then timed at fp32 x (CUDA events behind a spin kernel) beside
+    ``torch.bmm`` over its dequantized float32 stack and its bound. Returns
+    ([(name, local shape)], max|err| in float32, in the compute dtype,
+    [(name, ms, torch.bmm ms, bound ms, bound by)])."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models.layers import is_packed
     from repro_torch.models.layers import packed_weight as packed_weight_of
+    from repro_torch.serve.quantized import dequant_leaf
 
     g = torch.Generator(device=dev).manual_seed(13)
     swis_c = cfg.quant.cfg.method == "swis_c"
     dtypes = (torch.float32, getattr(torch, cfg.compute_dtype))
-    shapes, errs = [], [0.0, 0.0]
+    shapes, errs, timed = [], [0.0, 0.0], []
 
     def one(name, node):
         leaf = {k: v.to_local()[0] for k, v in node.items()}
@@ -3165,6 +3201,15 @@ def _hold_rank0_gemms(block, cfg, dev, m=8):
             check(torch.allclose(got, want, rtol=tol, atol=tol * top),
                   f"rank 0's {name} {shapes[-1][1]} at M={m} {dt}: "
                   f"max|err|={err:.3g} vs max|ref|={top:.3g}")
+            if e is not None and dt == torch.float32:
+                xe = x if own else x[None].expand(e, m, k)
+                w = dequant_leaf(leaf, consecutive=swis_c)
+                nbytes = x.numel() * 4 + tree_bytes(leaf) + e * m * n * 4
+                timed.append((name, event_ms(lambda: ops.swis_matmul_experts(
+                    x, leaf, consecutive=swis_c)),
+                    event_ms(lambda: torch.bmm(xe, w)),
+                    *expert_bound(nbytes, e * m * k * n)))
+                del w
 
     def walk(path, node):
         if is_packed(node):
@@ -3174,7 +3219,7 @@ def _hold_rank0_gemms(block, cfg, dev, m=8):
                 walk(path + (key,), v)
 
     walk((), block)
-    return shapes, tuple(errs)
+    return shapes, tuple(errs), timed
 
 
 def _rank0_step(arch, dev, card, kernels, card_mesh, want):
@@ -3252,7 +3297,7 @@ def _rank0_step(arch, dev, card, kernels, card_mesh, want):
           f"(ms, launches): " + "; ".join(
               f"{key[:60]} {ms:.3f} x{n}" for ms, key, n in by_kernel[:6]))
     (block,) = params["blocks"].values()
-    shapes, (err32, err_dt) = _hold_rank0_gemms(block, cfg, dev)
+    shapes, (err32, err_dt), timed = _hold_rank0_gemms(block, cfg, dev)
     check(len(shapes) == RANK0_SWIS_PER_LAYER,
           f"{arch} layer 0 holds {len(shapes)} packed leaves: {shapes}")
     check(arch != "mistral-large-123b"
@@ -3264,6 +3309,12 @@ def _rank0_step(arch, dev, card, kernels, card_mesh, want):
           f"at M=8: " + ", ".join(f"{n} {s}" for n, s in shapes)
           + f"; max|err| fp32 x {err32:.3g} (rtol 1e-5, atol "
           f"1e-5*max|ref|), {cfg.compute_dtype} x {err_dt:.3g} (2e-2)")
+    if timed:
+        print(f"phase 12 (c) on {card}: {arch}: rank 0's expert stacks at "
+              f"M=8, fp32 x (CUDA events behind a spin kernel), kernel / "
+              f"torch.bmm over the dequantized float32 stack / bound ms: "
+              + ", ".join(f"{n} {t:.5f} / {t_lib:.5f} / {b:.5f} ({by})"
+                          for n, t, t_lib, b, by in timed))
     return counts
 
 
@@ -3773,9 +3824,15 @@ def main() -> int:
                                    "library_ms", "max_abs_err")},
         "launches": sum(experts["launches"].values()),
         "launches_by_path": experts["launches"],
+        "design": EXPERT_DESIGN,
+        "capacity_stack": experts["capacity"],
         "timed": (f"one {MOE_ARCH} decode layer's 3 expert stacks (E 64) at "
                   f"M=4, fp32 x, by CUDA events behind a spin kernel; "
-                  f"library: torch.bmm over the dequantized float32 stack")}
+                  f"library: torch.bmm over the dequantized float32 stack; "
+                  f"bound: bytes over 3.35 TB/s or the fp16 tensor-core "
+                  f"products (x in two terms) over 989 TFLOP/s; "
+                  f"capacity_stack: the capacity path's wi stack, the same "
+                  f"way")}
     # the recurrent families' layers (phase 8 (b)), by CUDA events behind a
     # spin kernel; library: torch.matmul on the dense fp32 weights
     rows[0]["recurrent_layers"] = {

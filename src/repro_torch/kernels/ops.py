@@ -65,12 +65,13 @@ def swis_matmul(x: torch.Tensor, pw: PackedWeight, *,
 class _SwisMatmulExperts(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, sign, mask, shifts, scale, group, consecutive,
-                keep_slices):
+                keep_slices, bits):
         ctx.save_for_backward(sign, mask, shifts, scale)
         ctx.static = (group, consecutive, keep_slices, x.dtype)
         return swis_matmul_experts_packed(
             x, sign, mask, shifts, scale, n_shifts=int(mask.shape[-3]),
-            group=group, consecutive=consecutive, keep_slices=keep_slices)
+            group=group, consecutive=consecutive, keep_slices=keep_slices,
+            bits=bits)
 
     @staticmethod
     def backward(ctx, g):
@@ -81,16 +82,18 @@ class _SwisMatmulExperts(torch.autograd.Function):
                             consecutive=consecutive, keep_slices=keep_slices)
             for s, m, sh, sc in zip(sign, mask, shifts, scale)])
         gx = torch.einsum("emn,ekn->emk", g.float(), w.float())
-        return (gx,) + (None,) * 7
+        return (gx,) + (None,) * 8
 
 
 def swis_matmul_experts(x: torch.Tensor, leaf: dict, *,
                         consecutive: bool = False,
-                        keep_slices: Optional[int] = None) -> torch.Tensor:
+                        keep_slices: Optional[int] = None,
+                        bits: int = 8) -> torch.Tensor:
     """``x[e] @ dequant(leaf[e])`` for each expert e of a packed stack
     ``leaf`` (sign (E, K/32, N), masks (E, n, K/32, N), shifts, scale (E,
     1, N)) -> (E, M, N) float32. ``x`` is (E, M, K), or (M, K) rows that
-    every expert reads. ``consecutive``: the SWIS-C shift layout."""
+    every expert reads. ``consecutive``: the SWIS-C shift layout; ``bits``:
+    the precision the stack was quantized to (the card takes at most 8)."""
     sign, mask, shifts = (leaf["sign_plane"], leaf["mask_planes"],
                           leaf["shifts"])
     e = sign.shape[0]
@@ -100,4 +103,5 @@ def swis_matmul_experts(x: torch.Tensor, leaf: dict, *,
         x = x.contiguous()
     return _SwisMatmulExperts.apply(
         x, sign, mask, shifts, leaf["scale"],
-        sign.shape[-2] * 32 // shifts.shape[-3], consecutive, keep_slices)
+        sign.shape[-2] * 32 // shifts.shape[-3], consecutive, keep_slices,
+        bits)

@@ -1,13 +1,16 @@
 """SWIS dequant-in-kernel matmul: the wrappers around ``csrc/swis_matmul.cu``.
 
 :func:`swis_matmul_packed` ports ``repro.kernels.swis_matmul.
-swis_matmul_packed``. :func:`swis_matmul_experts_packed` is the same kernel
-over a stack of expert weights in one launch, where the reference
-dequantizes the stack and runs an einsum (``repro.models.moe``). On CUDA
-tensors each launches the hand-written kernel (or raises); on CPU tensors
-it takes the plain version in :mod:`repro_torch.kernels.ref`. The TPU
-kernel's tile-divisibility check is a TPU tiling artefact and is gone: the
-CUDA kernel masks its ragged edges.
+swis_matmul_packed`` (``swis_matmul_kernel``). :func:`swis_matmul_experts_packed`
+runs a stack of expert weights in one launch of the file's expert kernel
+(``swis_experts_kernel``: weights rebuilt as fp16 for tensor-core products,
+a copy pipeline, persistent blocks), where the reference dequantizes the
+stack and runs an einsum (``repro.models.moe``); it rebuilds magnitudes of
+at most 8 bits (shifts 0-7, distinct within a group, as ``pack`` stores
+them) and refuses a stack quantized to more. On CUDA tensors each launches the hand-written kernel (or raises);
+on CPU tensors it takes the plain version in :mod:`repro_torch.kernels.ref`.
+The TPU kernel's tile-divisibility check is a TPU tiling artefact and is
+gone: the CUDA kernels mask their ragged edges.
 """
 from __future__ import annotations
 
@@ -137,8 +140,8 @@ def swis_matmul_experts_packed(x: torch.Tensor, sign_plane: torch.Tensor,
                                mask_planes: torch.Tensor, shifts: torch.Tensor,
                                scale: torch.Tensor, *, n_shifts: int,
                                group: int, consecutive: bool = False,
-                               keep_slices: Optional[int] = None
-                               ) -> torch.Tensor:
+                               keep_slices: Optional[int] = None,
+                               bits: int = 8) -> torch.Tensor:
     """``x[e] (M, K) @ dequant(packed[e] (K, N))`` for every expert e, in
     one launch -> (E, M, N) float32.
 
@@ -146,6 +149,8 @@ def swis_matmul_experts_packed(x: torch.Tensor, sign_plane: torch.Tensor,
     K/32, N), shifts (E, K/group, N, bytes), scale (E, 1, N). ``x`` is (E,
     M, K), contiguous, or an expanded view whose expert stride is 0 (every
     expert reads the same rows, as decode's ``wi`` and ``wg`` do).
+    ``bits`` is the precision the stack was quantized to
+    (``QuantConfig.bits``); the card's kernel takes at most 8.
     """
     e = sign_plane.shape[0] if sign_plane.ndim == 3 else None
     _check(x, sign_plane, mask_planes, shifts, scale, n_shifts, group,
@@ -159,6 +164,9 @@ def swis_matmul_experts_packed(x: torch.Tensor, sign_plane: torch.Tensor,
         return ref.swis_matmul_experts_ref(
             x, sign_plane, mask_planes, shifts, scale, group=group,
             consecutive=consecutive, keep_slices=keep_slices)
+    if bits > 8:  # the kernel holds a magnitude in a byte, a shift in 3 bits
+        raise ValueError(f"the expert kernel rebuilds at most 8-bit "
+                         f"magnitudes (shifts 0-7), the stack has {bits}")
     shared = x.stride(0) == 0
     rows = x[0] if shared else x  # what the kernel reads
     _check_card(x, {"x": rows, "sign_plane": sign_plane,

@@ -57,7 +57,8 @@ def _experts(x: torch.Tensor, w, cfg: ArchConfig) -> torch.Tensor:
     N) in x's dtype. Packed: one SWIS expert-axis launch, all planes."""
     if is_packed(w):
         return ops.swis_matmul_experts(
-            x, w, consecutive=cfg.quant.cfg.method == "swis_c").to(x.dtype)
+            x, w, consecutive=cfg.quant.cfg.method == "swis_c",
+            bits=cfg.quant.cfg.bits).to(x.dtype)
     # each expert matrix quantized on its own, as the reference's vmap
     w = maybe_quant(w, cfg.quant.cfg, cfg.quant.mode, stacked=True)
     return torch.matmul(x, w.to(x.dtype))

@@ -8,6 +8,8 @@ The smoke config's d_model (60) leaves only the MLP's down projection
 packable (K must be a multiple of 32), so a second variant widens it to 64
 with GQA (4 heads over 2 KV heads) so that every GEMM runs packed."""
 import functools
+import zlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -275,3 +277,106 @@ def test_moe_logits_match_reference(packed, keep_slices):
                            torch.from_numpy(idx), torch.from_numpy(tables),
                            paged=True)
     _close(tl[:2], jl[:2])
+
+
+
+def _crc_leaf_rng(root, path):
+    """The reference's per-leaf key with ``zlib.crc32`` of each path token
+    in place of Python's salted ``hash``: the same weights in every
+    process."""
+    key = root
+    for part in path:
+        token = getattr(part, "key", None) or str(getattr(part, "idx", part))
+        key = jax.random.fold_in(key, np.uint32(zlib.crc32(token.encode()) % (2 ** 31)))
+    return key
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_params(arch, fields, seed, packed):
+    """Reference params of ``arch``'s smoke config (``fields`` over it),
+    drawn with :func:`_crc_leaf_rng` from ``jax.random.key(seed)``, packed
+    at 3 shifts if asked, and their bridge into the port."""
+    jcfg = C.get_smoke(arch).replace(**dict(fields))
+    with mock.patch.object(jpp, "_leaf_rng", _crc_leaf_rng):
+        jparams = jpp.init_params(JModel(jcfg).build(), jax.random.key(seed))
+    if packed:
+        jparams, _ = jpack_tree(jparams, JQuant(n_shifts=3))
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
+    return jparams, tparams
+
+
+def _bf16_prefill(jcfg, tcfg, jparams, tparams, seed):
+    """Bucketed prefill of two rows (13 and 9 real tokens) at bf16 compute
+    into a bf16 cache, as the engines serve by default: the logits of both
+    packages as float32 numpy arrays."""
+    jm, tm = JModel(jcfg), TModel(tcfg)
+    toks = np.random.default_rng(seed).integers(0, jcfg.vocab, (2, 16))
+    last = np.array([12, 8])
+    jc = jpp.init_params(jm.build_cache(2, L, jnp.bfloat16, per_slot=True),
+                         jax.random.key(0))
+    tc = tpp.init_params(tm.build_cache(2, L, torch.bfloat16, per_slot=True),
+                         device="cpu")
+    jl, _ = jax.jit(jm.prefill_bucketed)(
+        jparams, {"tokens": jnp.asarray(toks, jnp.int32)}, jc,
+        jnp.asarray(last, jnp.int32))
+    tl, _ = tm.prefill_bucketed(tparams, {"tokens": torch.from_numpy(toks)},
+                                tc, torch.from_numpy(last))
+    return tl.float().numpy(), np.asarray(jl.astype(jnp.float32))
+
+
+def _bf16_close(got, want):
+    """Within 2 % of max|logit| (bf16 rounds activations at other places in
+    the two frameworks), with the same greedy token at every position."""
+    top = np.abs(want).max()
+    assert np.abs(got - want).max() <= 0.02 * top, np.abs(got - want).max() / top
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.parametrize("variant", ["smoke", "gqa64"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_bf16_prefill_matches_reference(variant, packed):
+    """The dense smoke configs at ``compute_dtype="bfloat16"`` (the configs'
+    default), packed and unpacked. The weights are the same in every
+    process (:func:`_crc_leaf_rng`): the reference's own salted draws move
+    the bf16 gap between the packages by a factor of 2 or more from one
+    process to the next, as much as each package's bf16 logits move from
+    its fp32 ones."""
+    jcfg, tcfg = _cfgs(variant, packed, None)
+    fields = (("compute_dtype", "float32"),) + (
+        (("d_model", 64), ("n_heads", 4), ("n_kv_heads", 2), ("d_ff", 128))
+        if variant == "gqa64" else ())
+    jparams, tparams = _bf16_params("smollm-135m", fields, 3, packed)
+    _bf16_close(*_bf16_prefill(jcfg.replace(compute_dtype="bfloat16"),
+                               tcfg.replace(compute_dtype="bfloat16"),
+                               jparams, tparams, seed=21))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_moe_bf16_prefill_matches_reference(packed):
+    """The qwen2-moe smoke model at ``compute_dtype="bfloat16"``, packed and
+    unpacked, on weights that are the same in every process: the capacity
+    path's expert GEMMs take bf16 rows, as they do when the model serves.
+    Packed, the reference dequantizes each expert stack to bf16 (weights
+    times scale, rounded) and rounds the einsum's output to bf16, which puts
+    its bf16 logits 4.9 % of max|logit| from its fp32 ones here; the port's
+    expert op adds in fp32 and scales after the sum. So the packed port is
+    held to the reference's fp32 logits within the same 2 %, and its greedy
+    tokens to the reference's bf16 ones."""
+    jcfg = C.get_smoke("qwen2-moe-a2.7b")
+    tcfg = TC.get_smoke("qwen2-moe-a2.7b")
+    if packed:
+        jcfg = jcfg.replace(quant=JPolicy(cfg=JQuant(n_shifts=3), mode="off"))
+        tcfg = tcfg.replace(quant=TPolicy(cfg=TQuant(n_shifts=3), mode="off"))
+    jparams, tparams = _bf16_params("qwen2-moe-a2.7b",
+                                    (("compute_dtype", "float32"),), 6, packed)
+    got, want = _bf16_prefill(jcfg.replace(compute_dtype="bfloat16"),
+                              tcfg.replace(compute_dtype="bfloat16"),
+                              jparams, tparams, seed=22)
+    if not packed:
+        _bf16_close(got, want)
+        return
+    _, want32 = _bf16_prefill(jcfg.replace(compute_dtype="float32"),
+                              tcfg.replace(compute_dtype="float32"),
+                              jparams, tparams, seed=22)
+    _bf16_close(got, want32)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))

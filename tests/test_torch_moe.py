@@ -183,6 +183,23 @@ def test_expert_op_matches_dequant_einsum(method):
         "td,edf->etf", a, jw).sum())(jnp.asarray(x)))
 
 
+def test_expert_op_takes_wide_stacks_on_cpu():
+    """A stack quantized to 10 bits (shifts up to 9, which the card's expert
+    kernel refuses) still goes through the plain version on the CPU, equal
+    to the reference's dequant_leaf and einsum."""
+    rng = np.random.default_rng(6)
+    w = rng.normal(0, 0.05, (2, 64, 24)).astype(np.float32)
+    q = dict(method="swis", n_shifts=4, bits=10)
+    jleaf = jquantized.pack_tree({"wi": jnp.asarray(w)}, JQuant(**q))[0]["wi"]
+    tleaf = tquantized.pack_tree({"wi": torch.from_numpy(w)}, TQuant(**q))[0]["wi"]
+    nibbles = torch.cat([tleaf["shifts"] & 15, tleaf["shifts"] >> 4])
+    assert int(nibbles.max()) >= 8  # a shift the 3-bit format cannot hold
+    x = rng.normal(0, 1, (2, 5, 64)).astype(np.float32)
+    _close(ops.swis_matmul_experts(torch.from_numpy(x), tleaf, bits=10),
+           jnp.einsum("egd,edf->egf", jnp.asarray(x),
+                      jquantized.dequant_leaf(jleaf)))
+
+
 @pytest.mark.parametrize("method", ["swis", "swis_c"])
 def test_pack_tree_expert_stacks_bit_identical(method):
     """The port's pack_tree packs each (E, K, C) expert stack in one

@@ -46,7 +46,8 @@ def test_importing_the_port_loads_no_jax():
                  "optim.compress", "data.pipeline", "checkpoint.manager",
                  "train.steps", "train.loop", "launch.train",
                  "benchmarks.common", "benchmarks.paper_tables",
-                 "benchmarks.run", "examples.train_swis_qat",
+                 "benchmarks.run", "benchmarks.sass_count",
+                 "examples.train_swis_qat",
                  "examples.quickstart",
                  "serve.metrics", "serve.trace", "serve.costmodel",
                  "perfmodel.pe", "launch.serve", "examples.serve_swis",
