@@ -24,6 +24,11 @@ A cache split over ``kv_seq`` (what the rules give a decode cache:
 slot and attended split-softmax (:func:`_split_decode`). The engine's
 modes (block tables, per-slot rows, the paged kernel) are not sharded:
 the reference's engine has no mesh either.
+
+While a serving engine traces (:mod:`repro_torch.spans`),
+:func:`attention_apply` records the call span ``attn.core`` around the
+cache write and the attention proper (paged kernel or plain path), apart
+from the projections.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention import mask_value, paged_attention_decode
 from repro_torch.models.layers import build_linear, dense, rope
@@ -282,21 +288,39 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             out = comm.own_slice(comm.copy_to(out, ax), ax, -1)
         return comm.reduce_from(dense(p["wo"], out, cfg), ax)
 
+    if ctx is None:
+        q = rope(q, _pos2(positions), cfg.rope_theta)
+        k = rope(k, _pos2(positions), cfg.rope_theta)
+    with spans.span("attn.core"):
+        out, cache = _attend(
+            q, k, v, cfg, positions=positions, causal=causal, window=window,
+            ctx=ctx, cache=cache, cache_index=cache_index,
+            block_tables=block_tables, attend_cache=attend_cache,
+            paged=paged, q_lens=q_lens, split_cache=split_cache, own=own,
+            ax=ax)
+    return project(out), cache
+
+
+def _attend(q, k, v, cfg: ArchConfig, *, positions, causal, window, ctx,
+            cache, cache_index, block_tables, attend_cache, paged, q_lens,
+            split_cache, own, ax):
+    """The core of :func:`attention_apply` past the projections (and
+    RoPE): the cache write and the attention proper, paged kernel or plain
+    path. Returns (out (B, S, H_local, Dh), cache_or_None)."""
+    b, s = q.shape[:2]
     if ctx is not None:
         kv_pos = torch.arange(ctx.shape[1], dtype=torch.int32,
-                              device=x.device)
+                              device=q.device)
         out = chunked_attention(q, k, v, q_pos=positions, kv_pos=kv_pos,
                                 causal=False, window=None,
                                 chunk=cfg.attn_chunk)
-        return project(out), None
+        return out, None
 
-    q = rope(q, _pos2(positions), cfg.rope_theta)
-    k = rope(k, _pos2(positions), cfg.rope_theta)
     if cache is None:
         out = chunked_attention(q, k, v, q_pos=positions, kv_pos=positions,
                                 causal=causal, window=window,
                                 chunk=cfg.attn_chunk)
-        return project(out), None
+        return out, None
     if split_cache:  # the cache's positions split over ax
         if torch.is_tensor(cache_index) and cache_index.ndim:
             raise NotImplementedError("per-slot cache indices on a mesh")
@@ -312,7 +336,7 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             out = chunked_attention(q, k, v, q_pos=positions,
                                     kv_pos=positions, causal=causal,
                                     window=window, chunk=cfg.attn_chunk)
-        return project(out), cache
+        return out, cache
 
     ck, cv, cp = cache["k"], cache["v"], cache["pos"]
     cache_len = ck.shape[1]
@@ -331,7 +355,7 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             # row r writes at positions idx[r] + [0, S); its valid tokens
             # land in the blocks it owns (they never collide across rows),
             # the rest in the trash block
-            tok_valid = (torch.arange(s, device=x.device)[None, :]
+            tok_valid = (torch.arange(s, device=q.device)[None, :]
                          < q_lens[:, None])
             bi = torch.clamp(torch.div(new_pos, cache_len,
                                        rounding_mode="floor"), 0, nb - 1).long()
@@ -359,7 +383,7 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             out = paged_attention_decode(q, ck, cv, cp, block_tables,
                                          new_pos[:, 0], q_lens=q_lens,
                                          causal=causal, window=window)
-            return project(out), cache
+            return out, cache
         gk = ck[tl].reshape((b, nb * cache_len) + ck.shape[2:])
         gv = cv[tl].reshape((b, nb * cache_len) + cv.shape[2:])
         # logical blocks mapped to the trash block 0 are invalid, whatever
@@ -373,7 +397,7 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         else:
             out = full_attention(q, gk, gv, q_pos=positions, kv_pos=gp,
                                  causal=causal, window=window)
-        return project(out), cache
+        return out, cache
 
     if per_row:
         # per-slot decode over contiguous rows: row r writes its token at
@@ -381,7 +405,7 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         if s != 1 or not per_slot:
             raise ValueError("per-slot decode feeds one token per row into "
                              "a per-slot cache")
-        rows = torch.arange(b, device=x.device)
+        rows = torch.arange(b, device=q.device)
         slot = torch.remainder(idx, cache_len).long()
         ck[rows, slot] = kd[:, 0]
         cv[rows, slot] = vd[:, 0]
@@ -417,4 +441,4 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         out = chunked_attention(q, k, v, q_pos=positions, kv_pos=positions,
                                 causal=causal, window=window,
                                 chunk=cfg.attn_chunk)
-    return project(out), cache
+    return out, cache

@@ -16,6 +16,11 @@ load-balancing aux summed over the layers, as the reference does; the
 serving entry points ignore it, and :meth:`Model.loss` adds it to the
 cross-entropy.
 
+While a serving engine traces (:mod:`repro_torch.spans`), ``apply``
+records call spans: ``embed``, each block's own (``attn``, ``mlp``,
+``moe`` and their children, tagged with the block's layer index, see
+:func:`repro_torch.models.transformer.block_apply`) and ``unembed``.
+
 Under autograd with no cache, each unit runs under
 ``torch.utils.checkpoint`` (``use_reentrant=False``) as the reference
 wraps its unit function in ``jax.checkpoint``: ``parallel.remat="full"``
@@ -36,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import params as pp
 from repro_torch.models import transformer as tfm
@@ -163,14 +169,16 @@ class Model:
                          math.prod(ax.size for ax in env.batch))
 
         dt = getattr(torch, cfg.compute_dtype)
-        if cfg.family == "encoder":
-            w = params["frontend"]["w"]
-            if env is not None:
-                w = sharded.gather_params(w, splits["frontend"]["w"], env.tp)
-            x = batch["frames"].to(dt) @ w.to(dt)
-        else:
-            x = embed_apply(params["embed"], batch["tokens"], cfg,
-                            shard("embed"))
+        with spans.span("embed"):
+            if cfg.family == "encoder":
+                w = params["frontend"]["w"]
+                if env is not None:
+                    w = sharded.gather_params(w, splits["frontend"]["w"],
+                                              env.tp)
+                x = batch["frames"].to(dt) @ w.to(dt)
+            else:
+                x = embed_apply(params["embed"], batch["tokens"], cfg,
+                                shard("embed"))
         ctx = batch.get("patches")
         if ctx is not None:
             ctx = ctx.to(dt)
@@ -186,11 +194,12 @@ class Model:
         x = (constrain(x, ("batch", "seq", "embed")) if env is None
              else sharded.residual(x, first, env))
 
-        def run(x, lp, lc, group, keys):
+        def run(x, lp, lc, group, keys, first_layer):
             """The layers ``keys`` [(key, kind)] of one unit (or the tail,
-            ``group`` "blocks" or "tail") -> (x, their moe_aux summed)."""
+            ``group`` "blocks" or "tail"), the first of them layer
+            ``first_layer`` of the model -> (x, their moe_aux summed)."""
             aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-            for key, kind in keys:
+            for j, (key, kind) in enumerate(keys):
                 # an empty block cache ("enc") is a stateless block
                 c = (lc[key] or None) if lc is not None else None
                 x, _, aux = tfm.block_apply(
@@ -198,7 +207,7 @@ class Model:
                     cfg, kind, positions=positions, ctx=ctx, cache=c,
                     cache_index=cache_index, block_tables=block_tables,
                     attend_cache=attend_cache, paged=paged, q_lens=q_lens,
-                    shard=shard(group, key))
+                    shard=shard(group, key), layer=first_layer + j)
                 if env is not None:
                     x = sharded.residual(x, first, env)
                 if "moe_aux" in aux:
@@ -213,25 +222,27 @@ class Model:
             unit_cache = (_layer(cache["blocks"], i) if cache is not None
                           else None)
             x, aux = unit_fn(x, _layer(params["blocks"], i), unit_cache,
-                             "blocks", unit_keys)
+                             "blocks", unit_keys, i * len(unit_keys))
             aux_total = aux_total + aux
         if self.tail:  # unrolled, outside the unit checkpoint
             x, aux = run(x, params["tail"],
                          cache["tail"] if cache is not None else None, "tail",
                          [(f"tail{j}_{kind}", kind)
-                          for j, kind in enumerate(self.tail)])
+                          for j, kind in enumerate(self.tail)],
+                         self.n_units * len(unit_keys))
             aux_total = aux_total + aux
-        if env is not None:
-            x = sharded.enter(x, env)
-        if last_index is not None:
-            b = x.shape[0]
-            idx = torch.as_tensor(last_index, device=x.device).long()
-            x = x[torch.arange(b, device=x.device), idx.expand(b)][:, None]
-        elif last_only:
-            x = x[:, -1:]
-        x = norm_apply(params["final_norm"], x, cfg)
-        logits = unembed_apply(params["embed"], x, cfg, shard("embed"),
-                               gather_vocab=gather_vocab)
+        with spans.span("unembed"):
+            if env is not None:
+                x = sharded.enter(x, env)
+            if last_index is not None:
+                b = x.shape[0]
+                idx = torch.as_tensor(last_index, device=x.device).long()
+                x = x[torch.arange(b, device=x.device), idx.expand(b)][:, None]
+            elif last_only:
+                x = x[:, -1:]
+            x = norm_apply(params["final_norm"], x, cfg)
+            logits = unembed_apply(params["embed"], x, cfg, shard("embed"),
+                                   gather_vocab=gather_vocab)
         return logits, cache_in, aux_total
 
     # -- loss -----------------------------------------------------------------

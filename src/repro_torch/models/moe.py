@@ -13,12 +13,19 @@ Router math in fp32. On a mesh (``shard``, :class:`repro_torch.parallel.
 comm.Local`) every rank routes every token (a router split over experts is
 gathered), then runs its local experts (experts over ``model``) or its
 slice of every expert's hidden units, and one all-reduce combines them.
+
+While a serving engine traces (:mod:`repro_torch.spans`), ``moe_apply``
+records the call spans ``moe.router`` (router GEMM, softmax, top-k, the
+gate scatter; on the capacity path also the capacity bookkeeping and the
+dispatch einsum), ``moe.experts`` (the stacks and the activation),
+``moe.combine`` (the combine einsum) and ``moe.shared``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.core.qat import maybe_quant
@@ -154,19 +161,23 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, shard=None):
     if s == 1:
         # Decode: dropless dense dispatch over every expert (capacity
         # dropping at decode token counts would diverge from training).
-        _, gate_vals, gate_idx = _route(tokens, p["router"], cfg, shard)
-        comb = mine(torch.zeros((t, e_total), dtype=torch.float32,
-                                device=x.device).scatter_add_(
-                                    1, gate_idx, gate_vals), 1)
-        # every expert reads the same rows
-        ye, partial = experts(xin.contiguous()[None].expand(
-            comb.shape[1], t, d))
-        if partial and not exp:
-            comb = comm.copy_to(comb, ax)
-        y = torch.einsum("te,etd->td", comb.to(dt), ye)
-        if partial:
-            y = comm.reduce_from(y, ax)
-        y = _add_shared(p, tokens, y, cfg, shard)
+        with spans.span("moe.router"):
+            _, gate_vals, gate_idx = _route(tokens, p["router"], cfg, shard)
+            comb = mine(torch.zeros((t, e_total), dtype=torch.float32,
+                                    device=x.device).scatter_add_(
+                                        1, gate_idx, gate_vals), 1)
+        with spans.span("moe.experts"):
+            # every expert reads the same rows
+            ye, partial = experts(xin.contiguous()[None].expand(
+                comb.shape[1], t, d))
+        with spans.span("moe.combine"):
+            if partial and not exp:
+                comb = comm.copy_to(comb, ax)
+            y = torch.einsum("te,etd->td", comb.to(dt), ye)
+            if partial:
+                y = comm.reduce_from(y, ax)
+        with spans.span("moe.shared"):
+            y = _add_shared(p, tokens, y, cfg, shard)
         return y.reshape(b, s, d), {
             "moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
@@ -178,25 +189,28 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, shard=None):
             f"{mc.group_tokens} tokens: a group would span ranks")
     xt = group_tokens(tokens, cfg)
     g, gs = xt.shape[:2]
-    probs, flat, combine, dispatch = capacity_dispatch(
-        _route(xt, p["router"], cfg, shard), cfg, dt)
-    cap = combine.shape[-1]
-    combine = mine(combine, 2)
-    if exp:
-        dispatch = comm.own_slice(dispatch, ax, 2)
-    e_l = combine.shape[2]
-
-    # --- expert computation: each expert's g * cap rows ---
-    xd = torch.einsum("gsec,gsd->egcd", dispatch,
-                      xin.reshape(g, gs, d)).reshape(e_l, g * cap, d)
-    yo, partial = experts(xd)
-    if partial and not exp:
-        combine = comm.copy_to(combine, ax)
-    y = torch.einsum("gsec,egcd->gsd", combine.to(dt),
-                     yo.reshape(e_l, g, cap, d))
-    if partial:
-        y = comm.reduce_from(y, ax)
-    y = _add_shared(p, xt, y, cfg, shard)
+    with spans.span("moe.router"):
+        probs, flat, combine, dispatch = capacity_dispatch(
+            _route(xt, p["router"], cfg, shard), cfg, dt)
+        cap = combine.shape[-1]
+        combine = mine(combine, 2)
+        if exp:
+            dispatch = comm.own_slice(dispatch, ax, 2)
+        e_l = combine.shape[2]
+        # each expert's g * cap rows
+        xd = torch.einsum("gsec,gsd->egcd", dispatch,
+                          xin.reshape(g, gs, d)).reshape(e_l, g * cap, d)
+    with spans.span("moe.experts"):
+        yo, partial = experts(xd)
+    with spans.span("moe.combine"):
+        if partial and not exp:
+            combine = comm.copy_to(combine, ax)
+        y = torch.einsum("gsec,egcd->gsd", combine.to(dt),
+                         yo.reshape(e_l, g, cap, d))
+        if partial:
+            y = comm.reduce_from(y, ax)
+    with spans.span("moe.shared"):
+        y = _add_shared(p, xt, y, cfg, shard)
     return y.reshape(b, s, d), {"moe_aux": load_balance_aux(probs, flat, cfg)}
 
 

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -103,9 +104,15 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 cache: Optional[dict] = None,
                 cache_index=None, block_tables: Optional[torch.Tensor] = None,
                 attend_cache: bool = False, paged: bool = False,
-                q_lens: Optional[torch.Tensor] = None, shard=None):
+                q_lens: Optional[torch.Tensor] = None, shard=None,
+                layer: int = -1):
     """Returns (x, cache, aux): ``aux`` holds ``moe_aux`` for a moe block,
     and is empty otherwise. A cached block updates ``cache`` in place.
+
+    The attention kinds record call spans (:mod:`repro_torch.spans`),
+    tagged with the block's index ``layer``: ``attn`` (the norm, the
+    attention, the residual; a ``self_cross`` block's cross-attention
+    too), then ``mlp`` or ``moe`` (the norm, the FFN, the residual).
 
     ``enc`` attends both ways whatever ``cfg.causal`` says. A
     ``self_cross`` block adds the gated cross residual ``tanh(xgate) *
@@ -134,24 +141,29 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
         return None if shard is None else shard[key]
 
     window = cfg.griffin.window if kind == "attn_local" else None
-    h, cache = attn_mod.attention_apply(
-        p["attn"], norm_apply(p["ln1"], x, cfg), cfg, positions=positions,
-        causal=cfg.causal and kind != "enc", window=window, cache=cache,
-        cache_index=cache_index, block_tables=block_tables,
-        attend_cache=attend_cache, paged=paged, q_lens=q_lens,
-        shard=sub("attn"))
-    x = x + h
-    if kind == "self_cross" and ctx is not None:
-        hx, _ = attn_mod.attention_apply(
-            p["xattn"], norm_apply(p["lnx"], x, cfg), cfg,
-            positions=positions, causal=False, ctx=ctx, shard=sub("xattn"))
-        x = x + torch.tanh(p["xgate"]).to(x.dtype) * hx
+    with spans.span("attn", layer):
+        h, cache = attn_mod.attention_apply(
+            p["attn"], norm_apply(p["ln1"], x, cfg), cfg,
+            positions=positions, causal=cfg.causal and kind != "enc",
+            window=window, cache=cache, cache_index=cache_index,
+            block_tables=block_tables, attend_cache=attend_cache,
+            paged=paged, q_lens=q_lens, shard=sub("attn"))
+        x = x + h
+        if kind == "self_cross" and ctx is not None:
+            hx, _ = attn_mod.attention_apply(
+                p["xattn"], norm_apply(p["lnx"], x, cfg), cfg,
+                positions=positions, causal=False, ctx=ctx,
+                shard=sub("xattn"))
+            x = x + torch.tanh(p["xgate"]).to(x.dtype) * hx
     aux = {}
     if kind == "moe":
-        h, aux = moe_mod.moe_apply(p["moe"], norm_apply(p["ln2"], x, cfg),
-                                   cfg, sub("moe"))
-        x = x + h
+        with spans.span("moe", layer):
+            h, aux = moe_mod.moe_apply(p["moe"],
+                                       norm_apply(p["ln2"], x, cfg), cfg,
+                                       sub("moe"))
+            x = x + h
     else:
-        x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg,
-                          sub("mlp"))
+        with spans.span("mlp", layer):
+            x = x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x, cfg), cfg,
+                              sub("mlp"))
     return constrain(x, ("batch", "seq", "embed")), cache, aux

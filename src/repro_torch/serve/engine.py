@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig, QuantPolicy
 from repro_torch.core.swis import QuantConfig
 from repro_torch.models import params as pp
@@ -340,10 +341,12 @@ class ContinuousBatchingEngine:
         prefill_dispatch, chunk_advance, mixed_dispatch, decode_dispatch,
         device_sync (the wait for the logits, split from the host's
         sampling), sample_host, and ``step.total_s`` for the whole round;
-        ``step.model_dispatches`` counts model calls."""
+        ``step.model_dispatches`` counts model calls. With the tracer on,
+        the model's layers and the cache operations record call spans
+        inside these phases (``tracer.call_spans()``)."""
         m = self.metrics_registry
         self.tracer.current_step = self._step_no
-        with self._phase("step.total_s", "step"):
+        with self._phase("step.total_s", "step"), self._call_spans():
             if len(self._prefill_groups) < self.prefill_backlog:
                 with self._phase("step.admit_s", "admit"):
                     admitted = self.scheduler.admit()
@@ -467,6 +470,14 @@ class ContinuousBatchingEngine:
                 span, self.metrics_registry.histogram(hist))
         return self.metrics_registry.timer(hist)
 
+    def _call_spans(self):
+        """The call-span slot (:mod:`repro_torch.spans`) filled with this
+        engine's tracer for a step while the tracer is on; the shared null
+        context while it is off."""
+        if self.tracer.enabled:
+            return spans.recording(self.tracer)
+        return spans.NULL
+
     def _device_sync(self, logits: torch.Tensor) -> None:
         """With metrics on, wait for the device to finish ``logits`` under
         ``step.device_sync_s``, so that the dispatch phase before it times
@@ -478,13 +489,16 @@ class ContinuousBatchingEngine:
             if logits.device.type == "cuda":
                 torch.cuda.synchronize(logits.device)
 
-    def _record_cost(self, cost) -> None:
-        """Count one model call and record its predicted cost: global and
-        per-kind ``cost.*`` counters, per-kind per-dispatch histograms."""
+    def _record_cost(self, kind: str, *args, **kw) -> None:
+        """Count one model call and record its predicted cost,
+        ``cost_model.<kind>(*args, **kw)`` (built only with metrics on):
+        global and per-kind ``cost.*`` counters, per-kind per-dispatch
+        histograms."""
         m = self.metrics_registry
         m.counter("step.model_dispatches").inc()
         if not m.enabled:
             return
+        cost = getattr(self.cost_model, kind)(*args, **kw)
         for field in _COST_FIELDS:
             v = getattr(cost, field)
             m.counter(f"cost.{field}").inc(v)
@@ -515,7 +529,9 @@ class ContinuousBatchingEngine:
                       "dropped": self.tracer.dropped,
                       "capacity": self.tracer.capacity,
                       "spans": len(self.tracer.spans()),
-                      "dropped_spans": self.tracer.dropped_spans},
+                      "dropped_spans": self.tracer.dropped_spans,
+                      "call_spans": self.tracer.n_call_spans,
+                      "dropped_call_spans": self.tracer.dropped_call_spans},
         }
         if self.prefix_cache is not None:
             out["block_pool"] = self.prefix_cache.pool.occupancy()
@@ -676,31 +692,36 @@ class ContinuousBatchingEngine:
             last_idx = self._dev(lasts)
             self._stat_prefill_tokens += int(lasts.sum()) + g
             self.n_prefill_calls += 1
-            self._record_cost(self.cost_model.prefill(g, s_pad))
+            self._record_cost("prefill", g, s_pad)
             if self.block_mode:
                 meta = [self._slot_meta[slot] for slot, _ in group]
-                cache = self.cache.prefix_tree([m["matched"] for m in meta],
-                                               p_len)
+                with spans.span("kv.prefix_tree"):
+                    cache = self.cache.prefix_tree(
+                        [m["matched"] for m in meta], p_len)
                 if p_len:
                     logits, cache = self.model.prefill_chunk(
                         self.params, batch, cache, p_len, last_idx)
                 else:
                     logits, cache = self.model.prefill_bucketed(
                         self.params, batch, cache, last_idx)
-                for i, (slot, st) in enumerate(group):
-                    self.cache.scatter_row(cache, i, meta[i]["owned"],
-                                           meta[i]["prefix_blocks"],
-                                           len(st.req.prompt) - p_len)
+                with spans.span("kv.scatter"):
+                    for i, (slot, st) in enumerate(group):
+                        self.cache.scatter_row(cache, i, meta[i]["owned"],
+                                               meta[i]["prefix_blocks"],
+                                               len(st.req.prompt) - p_len)
             else:
                 cache = self.cache.fresh(g)
                 logits, cache = self.model.prefill_bucketed(
                     self.params, batch, cache, last_idx)
-                cache = self.cache.mask_pos_tail(
-                    cache, [len(st.req.prompt) for _, st in group])
-                self.cache.write_slots(cache, [slot for slot, _ in group])
-            first = _sample(logits, [st.req.key for _, st in group],
-                            np.zeros(g, np.int32),
-                            [st.req.temperature for _, st in group])
+                with spans.span("kv.scatter"):
+                    cache = self.cache.mask_pos_tail(
+                        cache, [len(st.req.prompt) for _, st in group])
+                    self.cache.write_slots(cache,
+                                           [slot for slot, _ in group])
+            with spans.span("sample"):
+                first = _sample(logits, [st.req.key for _, st in group],
+                                np.zeros(g, np.int32),
+                                [st.req.temperature for _, st in group])
             for (slot, st), tok in zip(group, first):
                 self.tracer.event(tr.FIRST_TOKEN, st.req.rid, slot=slot)
                 self.scheduler.record_prefill(slot, tok)
@@ -759,8 +780,9 @@ class ContinuousBatchingEngine:
                 need = p_len + s_pad
                 length = -(-(1 << max(need - 1, 0).bit_length()) // bs) * bs
                 length = min(self.cache.eff_len, max(length, bs))
-                grp["tree"] = self.cache.prefix_tree(
-                    [m["matched"] for m in metas], p_len, length=length)
+                with spans.span("kv.prefix_tree"):
+                    grp["tree"] = self.cache.prefix_tree(
+                        [m["matched"] for m in metas], p_len, length=length)
                 grp["tree_len"] = length  # the chunk's attended positions
             self._prefill_groups.append(grp)
 
@@ -794,7 +816,7 @@ class ContinuousBatchingEngine:
         committed = grp["p_len"] + lo
         self._stat_chunk_steps += 1
         self.n_chunk_calls += 1
-        self._record_cost(self.cost_model.chunk(g, s_chunk, grp["tree_len"]))
+        self._record_cost("chunk", g, s_chunk, grp["tree_len"])
         if committed == 0:
             # first chunk of an uncached prompt: it attends over its own
             # K/V like a whole-prompt prefill
@@ -806,24 +828,27 @@ class ContinuousBatchingEngine:
         grp["tree"] = tree
         grp["done"] = k + 1
         b0 = lo // bs  # this chunk's first logical block past the prefix
-        for i, (slot, st) in enumerate(grp["members"]):
-            meta = grp["metas"][i]
-            n_valid = min(len(st.req.prompt) - grp["p_len"] - lo, s_chunk)
-            nb = -(-n_valid // bs)
-            self.cache.scatter_row(tree, i, meta["owned"][b0:b0 + nb],
-                                   meta["prefix_blocks"] + b0, n_valid)
-            self.tracer.event(tr.PREFILL_CHUNK, st.req.rid, slot=slot,
-                              index=k, n_chunks=grp["n_chunks"],
-                              tokens=int(n_valid))
+        with spans.span("kv.scatter"):
+            for i, (slot, st) in enumerate(grp["members"]):
+                meta = grp["metas"][i]
+                n_valid = min(len(st.req.prompt) - grp["p_len"] - lo,
+                              s_chunk)
+                nb = -(-n_valid // bs)
+                self.cache.scatter_row(tree, i, meta["owned"][b0:b0 + nb],
+                                       meta["prefix_blocks"] + b0, n_valid)
+                self.tracer.event(tr.PREFILL_CHUNK, st.req.rid, slot=slot,
+                                  index=k, n_chunks=grp["n_chunks"],
+                                  tokens=int(n_valid))
         if not final:
             # a short group admitted behind a long prefill gets the next step
             self._prefill_groups.rotate(-1)
             return
         self._prefill_groups.popleft()
-        self._finish_group(grp, _sample(
-            logits, [st.req.key for _, st in grp["members"]],
-            np.zeros(g, np.int32),
-            [st.req.temperature for _, st in grp["members"]]))
+        with spans.span("sample"):
+            first = _sample(logits, [st.req.key for _, st in grp["members"]],
+                            np.zeros(g, np.int32),
+                            [st.req.temperature for _, st in grp["members"]])
+        self._finish_group(grp, first)
 
     def _mixed_once(self) -> None:
         """The head fused chunk group AND the whole decode batch in one
@@ -860,7 +885,7 @@ class ContinuousBatchingEngine:
         tables = np.concatenate([self.cache.block_tables, grp["tables"]])
         self._stat_chunk_steps += 1
         self.n_mixed_steps += 1
-        self._record_cost(self.cost_model.mixed(n + g, s_chunk))
+        self._record_cost("mixed", n + g, s_chunk)
         with self._phase("step.mixed_dispatch_s", "mixed_dispatch"):
             logits, self.cache.tree = self.model.mixed_step(
                 self.params, {"tokens": self._dev(btoks).long()},
@@ -896,13 +921,18 @@ class ContinuousBatchingEngine:
         return [(s, self.scheduler.slots[s].req.rid, int(steps[s]))
                 for s in decoding]
 
+    def _tables(self) -> torch.Tensor:
+        """The block tables on the device (copied there when changed)."""
+        with spans.span("kv.tables"):
+            return self.cache.tables_device()
+
     def _decode_once(self) -> None:
         toks, idxs, steps, temps, keys = self.scheduler.decode_batch(
             self._dummy_key)
         live = self._live(self.scheduler.decoding_slots(), steps)
         self.n_decode_steps += 1
-        self._record_cost(self.cost_model.decode(self.n_slots))
-        tables = self.cache.tables_device() if self.block_mode else None
+        self._record_cost("decode", self.n_slots)
+        tables = self._tables() if self.block_mode else None
         with self._phase("step.decode_dispatch_s", "decode_dispatch"):
             logits, self.cache.tree = self.model.decode_step(
                 self.params, self._dev(toks).long()[:, None], self.cache.tree,
@@ -940,7 +970,7 @@ class ContinuousBatchingEngine:
             return
         m = self.metrics_registry
         live = self._live(decoding, steps)
-        tables = self.cache.tables_device()
+        tables = self._tables()
         zeros = np.zeros(n, np.int64)
         draft_toks = np.zeros((n, k_max), np.int32)
         cur = toks
@@ -948,8 +978,8 @@ class ContinuousBatchingEngine:
         with self._phase("spec.draft_s", "spec_draft"):
             for j in range(k_max):
                 self.n_draft_steps += 1
-                self._record_cost(self.cost_model.draft(
-                    n, keep_slices=self.config.draft_slices))
+                self._record_cost("draft", n,
+                                  keep_slices=self.config.draft_slices)
                 logits, self.cache.tree = self.draft_model.mixed_step(
                     self.params, {"tokens": self._dev(cur).long()[:, None]},
                     self.cache.tree, idxs + j, (k_rows > j).astype(np.int32),
@@ -963,7 +993,7 @@ class ContinuousBatchingEngine:
         q_lens = np.zeros(n, np.int32)
         q_lens[decoding] = k_rows[decoding] + 1
         self.n_verify_steps += 1
-        self._record_cost(self.cost_model.verify(n, s_v))
+        self._record_cost("verify", n, s_v)
         with self._phase("spec.verify_s", "spec_verify"):
             logits, self.cache.tree = self.model.verify_step(
                 self.params, {"tokens": self._dev(btoks).long()},

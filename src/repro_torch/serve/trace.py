@@ -53,15 +53,21 @@ KINDS = (SUBMIT, ADMIT, UNADMIT, PREFIX_HIT, PREFILL_CHUNK, FIRST_TOKEN,
 
 @dataclasses.dataclass
 class SpanEvent:
-    """One timed engine phase: a ``[ts, ts+dur)`` interval on the
-    engine's step timeline, tagged with the step number it ran under.
-    Spans live in their own bounded ring, separate from the request
-    lifecycle ring — a chatty phase cannot evict lifecycle events."""
+    """One timed interval ``[ts, ts+dur)`` on the engine's step timeline,
+    tagged with the step number it ran under: an engine phase (the phase
+    ring) or a call span inside a phase (the call ring: a model layer or a
+    cache operation, with ``layer`` its block index, -1 outside the layer
+    loop, and ``parent`` the name of the span open around it, for a
+    top-level call span the engine phase it runs in). Each kind lives in
+    its own bounded ring, separate from the request lifecycle ring: a
+    chatty phase or layer loop cannot evict lifecycle events."""
 
     name: str
     ts: float  # monotonic seconds (perf_counter), span start
     dur: float  # seconds
     step: int = 0
+    layer: int = -1
+    parent: str = ""
 
 
 @dataclasses.dataclass
@@ -90,7 +96,10 @@ class RequestTracer:
 
     ``enabled=False`` turns :meth:`event` into a single attribute check
     (no allocation, no clock read). The default capacity (65536) holds
-    ~2k requests' full lifecycles at 24 generated tokens each.
+    ~2k requests' full lifecycles at 24 generated tokens each; the phase
+    ring and the call ring (:meth:`call_span`, reached from the model
+    through :mod:`repro_torch.spans`) each hold as many spans, and each
+    counts what it drops.
     """
 
     def __init__(self, capacity: int = 65536, enabled: bool = True):
@@ -102,6 +111,18 @@ class RequestTracer:
         # spans per step) can never evict request lifecycle events
         self._spans: collections.deque = collections.deque(maxlen=capacity)
         self.dropped_spans = 0
+        # call spans (model layers, cache operations): a third ring, so a
+        # layer loop of ~100 spans a call evicts neither phases nor events.
+        # It holds plain tuples (SpanEvent's fields), which the collector
+        # stops tracking, so ~170 spans a decode call add no garbage
+        # collection pauses; call_spans() builds the SpanEvents
+        self._calls: collections.deque = collections.deque(maxlen=capacity)
+        self.dropped_call_spans = 0
+        # (name, layer, ...) of the phase and call spans open now,
+        # outermost first: a call span's parent and inherited layer
+        self._open: List[tuple] = []
+        self._next = ("", None)  # (name, layer) of the call span entering
+        self._call = _CallSpan(self)  # the one call-span context, reused
         self.current_step = 0  # engine sets this at each step() entry
         # wall-clock anchor: ts_wall = ts + wall_offset
         self._wall_offset = time.time() - time.perf_counter()
@@ -131,11 +152,22 @@ class RequestTracer:
         phase histogram), so one clock read feeds both sinks."""
         return _SpanTimer(self, name, hist)
 
+    def call_span(self, name: str, layer: Optional[int] = None
+                  ) -> "_CallSpan":
+        """``with tracer.call_span("attn", layer=3):`` records one call
+        span in the call ring on exit, its parent the innermost span open
+        around it (phase or call) and, with ``layer`` None, that span's
+        layer."""
+        self._next = (name, layer)
+        return self._call
+
     def reset(self) -> None:
         self._ring.clear()
         self.dropped = 0
         self._spans.clear()
         self.dropped_spans = 0
+        self._calls.clear()
+        self.dropped_call_spans = 0
         self.current_step = 0
 
     # -- access ----------------------------------------------------------
@@ -152,6 +184,17 @@ class RequestTracer:
         if name is None:
             return list(self._spans)
         return [s for s in self._spans if s.name == name]
+
+    def call_spans(self, name: Optional[str] = None) -> List[SpanEvent]:
+        """The call ring: model layers and cache operations, in the order
+        they ended (a child before its parent)."""
+        return [SpanEvent(*c) for c in self._calls
+                if name is None or c[0] == name]
+
+    @property
+    def n_call_spans(self) -> int:
+        """How many spans the call ring holds (builds none)."""
+        return len(self._calls)
 
     @property
     def wall_offset(self) -> float:
@@ -243,14 +286,46 @@ class _SpanTimer:
         self._hist = hist
 
     def __enter__(self):
+        self._tracer._open.append((self._name, -1))
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         dur = time.perf_counter() - self._t0
+        self._tracer._open.pop()
         if self._hist is not None:
             self._hist.observe(dur)
         self._tracer.span(self._name, self._t0, dur)
+        return False
+
+
+class _CallSpan:
+    """Context manager of the call ring, one per tracer and reused: an open
+    span's state is its entry on the tracer's stack of open spans, so a
+    span allocates nothing but its record. ``with`` enters it right after
+    :meth:`RequestTracer.call_span` named it."""
+
+    __slots__ = ("_tracer",)
+
+    def __init__(self, tracer: RequestTracer):
+        self._tracer = tracer
+
+    def __enter__(self):
+        t = self._tracer
+        name, layer = t._next
+        parent, up = t._open[-1][:2] if t._open else ("", -1)
+        if layer is None:
+            layer = up
+        t._open.append((name, layer, parent, time.perf_counter()))
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        t = self._tracer
+        name, layer, parent, t0 = t._open.pop()
+        if len(t._calls) == t.capacity:
+            t.dropped_call_spans += 1
+        t._calls.append((name, t0, t1 - t0, t.current_step, layer, parent))
         return False
 
 
@@ -262,6 +337,9 @@ def _us(ts: float, base: float) -> float:
 # fixed pids for the exported trace: engine phases vs request lifecycles
 _PID_ENGINE = 1
 _PID_REQUESTS = 2
+# tracks of the engine process: phases, and the call spans inside them
+_TID_PHASES = 0
+_TID_MODEL = 1
 
 
 def export_chrome_trace(tracer: RequestTracer, path_or_file) -> int:
@@ -274,6 +352,11 @@ def export_chrome_trace(tracer: RequestTracer, path_or_file) -> int:
       recorded span. Phase spans (``admit``, ``decode_dispatch``, ...)
       nest under their enclosing ``step`` span by timestamp containment;
       ``args.step`` carries the engine step number.
+    * **pid 1 "engine" / tid 1 "model"** — one ``X`` slice per call span
+      (``embed``, ``attn`` > ``attn.core``, ``moe`` > ``moe.router``, ...,
+      ``kv.*``, ``sample``), nested by containment; ``args`` carries
+      ``step``, ``layer`` and ``parent``, so the layers show under the
+      phase that ran them.
     * **pid 2 "requests" / tid = rid** — per-request track: synthetic
       ``queued`` / ``prefill`` / ``decode`` interval slices derived from
       the lifecycle stream, every raw lifecycle event as an ``i``
@@ -285,24 +368,34 @@ def export_chrome_trace(tracer: RequestTracer, path_or_file) -> int:
     (Chrome traces care about relative placement, not epoch).
     """
     spans = list(tracer._spans)
+    calls = tracer.call_spans()
     events = list(tracer._ring)
-    ts0 = min([s.ts for s in spans] + [e.ts for e in events],
-              default=0.0)
+    ts0 = min([s.ts for s in spans] + [s.ts for s in calls]
+              + [e.ts for e in events], default=0.0)
 
     out: List[Dict[str, Any]] = [
         {"ph": "M", "name": "process_name", "pid": _PID_ENGINE, "tid": 0,
          "ts": 0, "args": {"name": "engine"}},
-        {"ph": "M", "name": "thread_name", "pid": _PID_ENGINE, "tid": 0,
-         "ts": 0, "args": {"name": "engine.step"}},
+        {"ph": "M", "name": "thread_name", "pid": _PID_ENGINE,
+         "tid": _TID_PHASES, "ts": 0, "args": {"name": "engine.step"}},
         {"ph": "M", "name": "process_name", "pid": _PID_REQUESTS, "tid": 0,
          "ts": 0, "args": {"name": "requests"}},
     ]
 
     for s in spans:
         out.append({"ph": "X", "name": s.name, "cat": "phase",
-                    "pid": _PID_ENGINE, "tid": 0, "ts": _us(s.ts, ts0),
-                    "dur": round(s.dur * 1e6, 3),
+                    "pid": _PID_ENGINE, "tid": _TID_PHASES,
+                    "ts": _us(s.ts, ts0), "dur": round(s.dur * 1e6, 3),
                     "args": {"step": s.step}})
+    if calls:
+        out.append({"ph": "M", "name": "thread_name", "pid": _PID_ENGINE,
+                    "tid": _TID_MODEL, "ts": 0, "args": {"name": "model"}})
+    for s in calls:
+        out.append({"ph": "X", "name": s.name, "cat": "call",
+                    "pid": _PID_ENGINE, "tid": _TID_MODEL,
+                    "ts": _us(s.ts, ts0), "dur": round(s.dur * 1e6, 3),
+                    "args": {"step": s.step, "layer": s.layer,
+                             "parent": s.parent}})
 
     by_rid: Dict[int, List[TraceEvent]] = {}
     for e in events:
